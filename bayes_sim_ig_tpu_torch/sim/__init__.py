@@ -1,0 +1,42 @@
+"""Vectorized tasks and the env factory."""
+
+from .task import (
+    Task, EnvState, VecEnv, env_step, env_full_reset,
+    CLIP_OBSERVATIONS, CLIP_ACTIONS,
+)
+from .cartpole import Cartpole
+
+_TASK_REGISTRY = {
+    "Cartpole": Cartpole,
+}
+
+# Tasks of the JAX package that this package does not have yet.
+NOT_YET_PORTED = ("Ant", "Anymal", "BallBalance", "FrankaCabinet",
+                  "Humanoid", "Ingenuity", "Pendulum", "Quadcopter",
+                  "ShadowHand")
+
+
+def register_task(name, cls):
+    _TASK_REGISTRY[name] = cls
+
+
+def available_tasks():
+    return sorted(_TASK_REGISTRY)
+
+
+def make_env(task_name: str, cfg: dict, seed: int = 0,
+             device="cpu") -> VecEnv:
+    """Creates a vectorized env for a task on ``device``."""
+    if task_name not in _TASK_REGISTRY:
+        raise NotImplementedError(
+            f"Task '{task_name}' is not yet ported to "
+            f"bayes_sim_ig_tpu_torch. Available: {available_tasks()}")
+    if cfg.get("env", {}).get("asymmetric_observations", False):
+        raise NotImplementedError("asymmetric_observations (the privileged "
+                                  "critic) is not yet ported")
+    return VecEnv(_TASK_REGISTRY[task_name](cfg, device=device), seed=seed)
+
+
+__all__ = ["Task", "EnvState", "VecEnv", "env_step", "env_full_reset",
+           "Cartpole", "make_env", "register_task", "available_tasks",
+           "NOT_YET_PORTED", "CLIP_OBSERVATIONS", "CLIP_ACTIONS"]

@@ -1,0 +1,189 @@
+"""Round-based rollout collection for BayesSim training and evaluation.
+
+Port of ``bayes_sim_ig_tpu/utils/collect.py``:
+
+  * one "round" = full re-randomized reset of all envs + exactly
+    ``max_episode_length - 1`` steps;
+  * each env contributes its FIRST episode of the round; episodes that
+    early-terminate at step t_done are padded by repeating their last
+    state/action;
+  * ground-truth param labels are the params sampled at the round's reset;
+  * rounds repeat until ``num_trajs`` episodes are banked.
+
+Trajectories are stored in float32. Returns (params, states, actions,
+rewards, imgs) with states (N, L, S), actions (N, L, A),
+L = max_episode_length.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from ..sim.task import env_full_reset, env_step
+
+
+# --------------------------------------------------------------------- #
+# Collection policies: (act, gen) -> act transforms of the RL action.
+# --------------------------------------------------------------------- #
+def policy_ones(act, gen):
+    return torch.ones_like(act)
+
+
+def policy_random(act, gen):
+    # NB: U[0, 1], not U[-1, 1], preserved from the reference.
+    return torch.rand(act.shape, generator=gen, dtype=act.dtype,
+                      device=act.device)
+
+
+def policy_rl(act, gen):
+    return act
+
+
+def policy_rl_randomized(act, gen, frac_rnd=0.1):
+    """With prob frac_rnd (one draw per step, whole batch) replace the
+    action tensor with U[-1, 1]."""
+    rnd = torch.rand((), generator=gen, device=act.device)
+    random_act = torch.rand(act.shape, generator=gen, dtype=act.dtype,
+                            device=act.device) * 2.0 - 1.0
+    return torch.where(rnd < frac_rnd, random_act, act)
+
+
+def policy_grasp(act, gen, excitation_dims):
+    """Drives the task-declared excitation dims to max while the other
+    dims jitter around neutral (see the JAX package's policy_grasp)."""
+    base = torch.zeros_like(act)
+    base[..., list(excitation_dims)] = 1.0
+    jitter = torch.rand(act.shape, generator=gen, dtype=act.dtype,
+                        device=act.device) * 0.6 - 0.3
+    return torch.clamp(base + jitter, -1.0, 1.0)
+
+
+_POLICY_REGISTRY = {
+    "policy_ones": policy_ones,
+    "policy_random": policy_random,
+    "policy_rl": policy_rl,
+    "policy_rl_randomized": policy_rl_randomized,
+    "policy_grasp": policy_grasp,  # resolved per-task, see below
+}
+
+
+def get_collect_policy(name: Optional[str], task=None):
+    """Resolves a collect-policy name to an (act, gen) -> act callable.
+    `policy_grasp` reads ``task.grasp_excitation_dims`` and degrades to
+    `policy_ones` with a warning for tasks that declare none."""
+    if name is None or name == "None":
+        return policy_rl
+    if name not in _POLICY_REGISTRY:
+        raise KeyError(f"Unknown collect policy '{name}'. "
+                       f"Available: {sorted(_POLICY_REGISTRY)}")
+    if name == "policy_grasp":
+        dims = getattr(task, "grasp_excitation_dims", None)
+        if dims is None:
+            warnings.warn(
+                "policy_grasp selected but the task declares no "
+                "grasp_excitation_dims; falling back to policy_ones "
+                "semantics (the reference's squeeze excitation).")
+            return policy_ones
+        return lambda act, gen: policy_grasp(act, gen, tuple(dims))
+    return _POLICY_REGISTRY[name]
+
+
+# --------------------------------------------------------------------- #
+def _postprocess_round(obs0, obs_seq, act_seq, rew_seq, done_seq, labels):
+    """Episode extraction + repeat-last padding: x[t] -> x[min(t, t_done)]
+    as one gather of the step-t_done slice and a select."""
+    n_steps, n = done_seq.shape
+    t_done = torch.argmax((done_seq > 0).to(torch.int32), dim=0)  # (N,)
+    t_idx = torch.arange(n_steps, device=done_seq.device)[:, None]
+    alive = t_idx <= t_done[None, :]  # (n_steps, N)
+    env_ids = torch.arange(n, device=done_seq.device)
+
+    def pad_last(x):
+        x_done = x[t_done, env_ids]  # (N, D)
+        return torch.where(alive[:, :, None], x, x_done[None])
+
+    states = torch.cat([obs0[None], pad_last(obs_seq)], dim=0)
+    acts = pad_last(act_seq)
+    acts = torch.cat([acts, acts[-1:]], dim=0)
+    rewards = (rew_seq * alive).sum(dim=0)
+    return (labels, states.transpose(0, 1).contiguous(),
+            acts.transpose(0, 1).contiguous(), rewards)
+
+
+@torch.no_grad()
+def _collect_round(task, policy_apply, collect_policy, max_episode_length,
+                   policy_params, distr, gen):
+    """One synchronized round; returns padded episodes for every env.
+
+    policy_apply: (policy_params, obs, gen) -> action (the RL policy).
+    collect_policy: (act, gen) -> act transform.
+    """
+    env_state, obs0 = env_full_reset(task, distr, gen)
+    labels = env_state.params  # ground-truth params for this round
+    obs = obs0
+    obs_seq, act_seq, rew_seq, done_seq = [], [], [], []
+    for _ in range(max_episode_length - 1):
+        act = policy_apply(policy_params, obs, gen)
+        act = collect_policy(act, gen)
+        env_state, obs, rew, done = env_step(task, distr, env_state, act,
+                                             gen, max_episode_length)
+        obs_seq.append(obs)
+        act_seq.append(act)
+        rew_seq.append(rew)
+        done_seq.append(done)
+    return _postprocess_round(obs0, torch.stack(obs_seq),
+                              torch.stack(act_seq), torch.stack(rew_seq),
+                              torch.stack(done_seq), labels)
+
+
+def collect_trajectories(
+        num_trajs: int,
+        ppo,
+        collect_policy_fxn: Optional[Callable] = None,
+        max_traj_len: Optional[int] = None,
+        gen: Optional[torch.Generator] = None,
+        verbose: bool = False,
+        visualize: bool = False,
+):
+    """Collects ``num_trajs`` episodes from ``ppo.vec_env`` (reference call
+    shape). ``max_traj_len`` overrides episode length to max_traj_len + 1
+    steps of bookkeeping. ``visualize`` renders env 0 of the first round
+    via the task's ``render_obs_frame``. Draws come from ``gen`` (default:
+    the PPO trainer's generator)."""
+    vec_env = ppo.vec_env
+    task = vec_env.task
+    distr = vec_env._distr
+    assert distr is not None, "set the env sampling distribution first"
+    max_episode_length = (task.max_episode_length if max_traj_len is None
+                          else max_traj_len + 1)
+    if gen is None:
+        gen = ppo.gen
+    collect_policy = (policy_rl if collect_policy_fxn is None
+                      else collect_policy_fxn)
+    n_rounds = -(-num_trajs // task.num_envs)  # ceil
+    rounds = []
+    for r in range(n_rounds):
+        rounds.append(_collect_round(
+            task, ppo.policy_apply, collect_policy, max_episode_length,
+            ppo.net, distr, gen))
+        if verbose:
+            done = min((r + 1) * task.num_envs, num_trajs)
+            print(f"collected {done} trajs")
+    params, states, actions, rewards = (
+        torch.cat(parts, dim=0)[:num_trajs] for parts in zip(*rounds))
+    imgs: List = []
+    if visualize:
+        imgs = _render_env0(task, states[0].cpu().numpy())
+    return params, states, actions, rewards, imgs
+
+
+def _render_env0(task, obs_traj: np.ndarray) -> List:
+    """Renders one episode's frames from its observation stream."""
+    render = getattr(task, "render_obs_frame", None)
+    if render is None:
+        return []
+    return [render(obs_traj[t]) for t in range(obs_traj.shape[0])]

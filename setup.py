@@ -2,7 +2,9 @@
 
 python setup.py build_ext --inplace
 builds the C Halton generator (ops/native/halton.c); the package falls
-back to the pure-numpy implementation when the extension is absent.
+back to the pure-numpy implementation when the extension is absent. The
+PyTorch port (bayes_sim_ig_tpu_torch) compiles its CUDA kernels with nvcc
+at first use, not here.
 """
 
 from setuptools import Extension, setup
@@ -10,7 +12,9 @@ from setuptools import Extension, setup
 setup(
     name="bayes_sim_ig_tpu",
     version="0.1.0",
-    packages=["bayes_sim_ig_tpu"],
+    packages=["bayes_sim_ig_tpu", "bayes_sim_ig_tpu_torch"],
+    package_data={"bayes_sim_ig_tpu_torch": ["cfg/*.yaml", "cfg/train/*.yaml",
+                                             "csrc/*.cu"]},
     ext_modules=[
         Extension(
             "bayes_sim_ig_tpu.ops.native._halton_native",
