@@ -4,14 +4,16 @@ from .task import (
     Task, EnvState, VecEnv, env_step, env_full_reset,
     CLIP_OBSERVATIONS, CLIP_ACTIONS,
 )
+from .ant import Ant
 from .cartpole import Cartpole
 
 _TASK_REGISTRY = {
+    "Ant": Ant,
     "Cartpole": Cartpole,
 }
 
 # Tasks of the JAX package that this package does not have yet.
-NOT_YET_PORTED = ("Ant", "Anymal", "BallBalance", "FrankaCabinet",
+NOT_YET_PORTED = ("Anymal", "BallBalance", "FrankaCabinet",
                   "Humanoid", "Ingenuity", "Pendulum", "Quadcopter",
                   "ShadowHand")
 
@@ -38,5 +40,5 @@ def make_env(task_name: str, cfg: dict, seed: int = 0,
 
 
 __all__ = ["Task", "EnvState", "VecEnv", "env_step", "env_full_reset",
-           "Cartpole", "make_env", "register_task", "available_tasks",
+           "Ant", "Cartpole", "make_env", "register_task", "available_tasks",
            "NOT_YET_PORTED", "CLIP_OBSERVATIONS", "CLIP_ACTIONS"]

@@ -5,7 +5,7 @@ numpy/jax arrays; ``nn.Linear`` keeps ``weight`` as (out, in). These
 functions map whole parameter trees of the JAX layout to ``state_dict``s
 of the port's modules and back, as numpy, which is also the layout the
 checkpoints of both packages pickle. An RFF ``coeff`` (d, m) goes across
-as it is.
+as it is, and so do the fields of the physics' ``DynParams``.
 """
 
 from __future__ import annotations
@@ -69,3 +69,19 @@ def actor_critic_params_to_jax(net) -> Dict:
         for part in ("actor", "critic")}
     tree["log_std"] = net.log_std.detach().cpu().numpy().copy()
     return tree
+
+
+def dynparams_from_jax(dp, device="cpu"):
+    """A JAX ``DynParams`` (or any sequence of its 11 fields in order, as
+    numpy or jax arrays) -> the port's ``DynParams``: float32 tensors on
+    ``device``, shapes unchanged."""
+    from ..physics.model import DynParams
+    return DynParams(*[torch.as_tensor(np.array(x, np.float32),
+                                       device=device) for x in dp])
+
+
+def dynparams_to_jax(dp) -> Dict[str, np.ndarray]:
+    """The port's ``DynParams`` -> its fields as float32 numpy arrays by
+    name (``DynParams(**out)`` in the JAX package)."""
+    return {k: v.detach().cpu().numpy().astype(np.float32)
+            for k, v in dp._asdict().items()}

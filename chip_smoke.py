@@ -2,24 +2,41 @@
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure raises and exits non-zero):
-  1. device: requires CUDA, prints the card's name and power limit;
-  2. build: compiles the port's CUDA kernels from csrc/ (nvcc);
-  3. kernel vs plain: each kernel against its plain PyTorch version on the
-     card at the main path's shapes, with the stated tolerance; the median
-     time per call of both over 50 calls (CUDA events), and their device
-     time per call (torch.profiler);
-  4. the ADR loop: Cartpole + MDRFF at full width (512 envs, summary_corrdiff
-     features d = 302, 200 RFF features, 10 components over 13 params)
-     for 2 ADR iterations through ``bayes_sim_main.main``, then checks that
-     the kernels were launched, the posteriors are finite and every model
-     and env tensor is on the card.
-The line before the last is a JSON object with each kernel's numbers; the
-last line is ``{"ok": true, "device": {...}}``.
+Phases (each prints its lines; any failure raises and exits non-zero):
+  1. device: requires CUDA, prints the card's name and power limit, and
+     holds float32 products to full precision (no TF32);
+  2. build: compiles the port's CUDA kernels from csrc/ (one nvcc per
+     source, started together);
+  3. kernels vs plain, on the card at the main paths' shapes with the
+     stated tolerances; the median time per call of both over 50 calls
+     (CUDA events) and their device time per call (torch.profiler):
+     - rff_features (csrc/rff_features.cu) at the MDRFF shapes;
+     - the SPD factor, substitute (K = 1 and K = 4), fused solve and the
+       solve's autograd backward (csrc/spd_lanes.cu) at (n, N) = (14,
+       1024) (Ant), (14, 1), (14, 4096), (30, 1024) and (5, 17), and the
+       NaN-pivot policy (one indefinite system: NaN in its env only);
+  4. the ADR loop on Ant at full width (1024 envs, 17 params,
+     trainTrajLen 50, summary_corrdiff, MDNN [128, 128] x 10 components,
+     PPO [256, 128, 64] with nsteps 16) for 2 ADR iterations through
+     ``bayes_sim_main.main``; checks that the SPD factor and substitute
+     kernels were launched, the posteriors are finite with 17 dims and
+     every model and env tensor is on the card; prints the seconds of
+     each iteration and of its phases;
+  5. the ADR loop on Cartpole + MDRFF at full width (512 envs,
+     summary_corrdiff features d = 302, 200 RFF features, 10 components
+     over 13 params) for 2 ADR iterations; checks that rff_features was
+     launched, and the same as phase 4.
+Each ADR phase sets every kernel's launch count to 0 just before it runs
+and reads the counts just after. The line before the card's line is a
+JSON object with each kernel's numbers; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures
+import contextlib
 import json
 import os
 import pickle
@@ -36,12 +53,21 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 RUN_DIR = os.path.join(HERE, "runs", "chip_smoke")
 
 # rtol/atol of the JAX package's own kernel test (tests/test_ops.py:31-32).
-RTOL, ATOL = 2e-4, 1e-5
+RFF_RTOL, RFF_ATOL = 2e-4, 1e-5
 # (B, d, m): a training minibatch, the test split, one prediction, a whole
 # chunk, and a ragged toy shape.
 RFF_SHAPES = [(100, 302, 100), (200, 302, 100), (1, 302, 100),
               (1000, 302, 100), (17, 3, 64)]
-TIMED_SHAPE = (100, 302, 100)
+RFF_TIMED = (100, 302, 100)
+
+# The SPD kernels against their plain versions: float32 with sums in
+# another order, on systems A = M M^T + n I (condition number ~5).
+SPD_RTOL, SPD_ATOL = 1e-4, 1e-5
+# (n, N): Ant's mass matrix at its full width, one env, 4x the envs, the
+# widest nv the JAX package names (30), and a ragged toy shape.
+SPD_SHAPES = [(14, 1024), (14, 1), (14, 4096), (30, 1024), (5, 17)]
+SPD_TIMED = (14, 1024)
+SPD_RHS = 4  # K for the multi-right-hand-side substitute
 
 
 def phase_device():
@@ -52,25 +78,37 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    # Full float32 for every plain product the kernels are compared with.
+    # Full float32 for every product: the physics' structure folds and
+    # every plain version the kernels are compared with.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    assert torch.backends.cuda.matmul.allow_tf32 is False
     print(f"[device] {smi} | torch {torch.__version__} cuda "
-          f"{torch.version.cuda} | {torch.cuda.device_count()} card(s)",
-          flush=True)
+          f"{torch.version.cuda} | {torch.cuda.device_count()} card(s) | "
+          f"allow_tf32 {torch.backends.cuda.matmul.allow_tf32}", flush=True)
     return smi
 
 
 def phase_build():
-    from bayes_sim_ig_tpu_torch.ops import build, rff_kernel
+    from bayes_sim_ig_tpu_torch.ops import build, rff_kernel, spd_kernel
+    loaders = {"rff_features": rff_kernel._kernel_fn,
+               "spd_lanes": spd_kernel._kernel_fns}
     t0 = time.perf_counter()
-    rff_kernel._kernel_fn()
+    with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
+        futures = {name: pool.submit(fn) for name, fn in loaders.items()}
+        for fut in futures.values():
+            fut.result()
     secs = time.perf_counter() - t0
-    log = build.BUILD_LOG.get("rff_features", {})
-    ptxas = " ".join(line.strip() for line in log.get("ptxas", "").split(
-        "\n") if "registers" in line or "stack frame" in line)
-    print(f"[build] rff_features.cu built+loaded in {secs:.2f} s "
-          f"({'compiled' if log else 'cached'}); {ptxas}", flush=True)
+    for name in loaders:
+        log = build.BUILD_LOG.get(name, {})
+        ptxas = " ".join(line.strip() for line in log.get(
+            "ptxas", "").split("\n")
+            if "registers" in line or "stack frame" in line)
+        print(f"[build] {name}: "
+              f"{'compiled in %.2f s' % log['seconds'] if log else 'cached'}"
+              f"; {ptxas}", flush=True)
+    print(f"[build] both libraries built and loaded in {secs:.2f} s",
+          flush=True)
 
 
 def _median_ms(fn, n=50, warmup=5):
@@ -104,7 +142,24 @@ def _device_ms(fn, n=50):
     return total_us / 1000.0 / n if total_us > 0 else None
 
 
-def phase_kernel():
+def _fmt(v):
+    return "not measured" if v is None else f"{v:.4f} ms"
+
+
+def _times(kernel_fn, plain_fn):
+    return {"ms": _median_ms(kernel_fn), "plain_ms": _median_ms(plain_fn),
+            "dev_ms": _device_ms(kernel_fn),
+            "plain_dev_ms": _device_ms(plain_fn)}
+
+
+def _time_line(t):
+    return (f"median of 50 (CUDA events per call): kernel {t['ms']:.4f} ms, "
+            f"plain {t['plain_ms']:.4f} ms | device time per call "
+            f"(profiler): kernel {_fmt(t['dev_ms'])}, plain "
+            f"{_fmt(t['plain_dev_ms'])}")
+
+
+def phase_rff_kernel():
     from bayes_sim_ig_tpu_torch.ops import rff_kernel
     dev = torch.device("cuda:0")
     a = 0.1
@@ -122,29 +177,116 @@ def phase_kernel():
         err = (got - want).abs()
         max_abs = float(err.max())
         max_rel = float((err / want.abs().clamp_min(1e-30)).max())
-        ok = bool(torch.allclose(got, want, rtol=RTOL, atol=ATOL))
-        k_ms = _median_ms(lambda: rff_kernel.rff_features_cuda(x, coeff, a))
-        p_ms = _median_ms(
-            lambda: rff_kernel.rff_features_reference(x, coeff, a))
-        k_dev = _device_ms(lambda: rff_kernel.rff_features_cuda(x, coeff, a))
-        p_dev = _device_ms(
-            lambda: rff_kernel.rff_features_reference(x, coeff, a))
-
-        def fmt(v):
-            return "not measured" if v is None else f"{v:.4f} ms"
+        ok = bool(torch.allclose(got, want, rtol=RFF_RTOL, atol=RFF_ATOL))
+        t = _times(lambda: rff_kernel.rff_features_cuda(x, coeff, a),
+                   lambda: rff_kernel.rff_features_reference(x, coeff, a))
         print(f"[kernel] rff_features B={b} d={d} m={m}: max_abs_err "
-              f"{max_abs:.3e} max_rel_err {max_rel:.3e} (rtol {RTOL}, atol "
-              f"{ATOL}) {'ok' if ok else 'MISMATCH'} | median of 50 (CUDA "
-              f"events per call): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
-              f"| device time per call (profiler): kernel {fmt(k_dev)}, "
-              f"plain {fmt(p_dev)}", flush=True)
+              f"{max_abs:.3e} max_rel_err {max_rel:.3e} (rtol {RFF_RTOL}, "
+              f"atol {RFF_ATOL}) {'ok' if ok else 'MISMATCH'} | "
+              f"{_time_line(t)}", flush=True)
         if not ok:
             raise AssertionError(f"rff_features disagrees with its plain "
                                  f"version at B={b} d={d} m={m}")
         worst = max(worst, max_abs)
-        if (b, d, m) == TIMED_SHAPE:
-            timed = (k_ms, p_ms)
-    return {"max_abs_err": worst, "ms": timed[0], "plain_ms": timed[1]}
+        if (b, d, m) == RFF_TIMED:
+            timed = t
+    return {"max_abs_err": worst, **timed}
+
+
+def _spd_inputs(n, N, k=None, seed=0):
+    rs = np.random.RandomState(seed)
+    M = rs.randn(N, n, n)
+    A = M @ M.transpose(0, 2, 1) + n * np.eye(n)
+    dev = torch.device("cuda:0")
+    At = torch.as_tensor(A.transpose(1, 2, 0), dtype=torch.float32,
+                         device=dev).contiguous()
+    shape = (n, N) if k is None else (k, n, N)
+    return At, torch.as_tensor(rs.randn(*shape), dtype=torch.float32,
+                               device=dev)
+
+
+def _check(name, got, want, shape):
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ok = (bool(torch.isfinite(got).all())
+          and torch.allclose(got, want, rtol=SPD_RTOL, atol=SPD_ATOL))
+    print(f"[kernel] {name} (n, N) = {shape}: max_abs_err {err:.3e} (rtol "
+          f"{SPD_RTOL}, atol {SPD_ATOL}) {'ok' if ok else 'MISMATCH'}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version at "
+                             f"(n, N) = {shape}")
+    return err
+
+
+def phase_spd_kernel():
+    from bayes_sim_ig_tpu_torch.ops import spd_kernel as sk
+    worst = collections.defaultdict(float)
+    timed = {}
+    for n, N in SPD_SHAPES:
+        At, bt = _spd_inputs(n, N, seed=n)
+        _, bk = _spd_inputs(n, N, k=SPD_RHS, seed=n + 1)
+        Lt = sk.spd_factor_lanes_cuda(At)
+        Lp = sk._chol_lanes_factor(At)
+        worst["factor"] = max(worst["factor"],
+                              _check("spd_factor_lanes", Lt, Lp, (n, N)))
+        x = sk.spd_substitute_lanes_cuda(Lp, bt)
+        worst["substitute"] = max(worst["substitute"], _check(
+            "spd_substitute_lanes K=1", x,
+            sk._chol_lanes_substitute(Lp, bt), (n, N)))
+        worst["substitute"] = max(worst["substitute"], _check(
+            f"spd_substitute_lanes K={SPD_RHS}",
+            sk.spd_substitute_lanes_cuda(Lp, bk),
+            sk._chol_lanes_substitute(Lp, bk), (n, N)))
+        x_plain = sk._chol_lanes_core(At, bt)
+        worst["solve"] = max(worst["solve"], _check(
+            "spd_solve_lanes", sk.spd_solve_lanes_cuda(At, bt), x_plain,
+            (n, N)))
+        # The autograd backward runs the solve kernel on the incoming
+        # gradient; its plain version is the Pallas VJP's formula on
+        # plain solves.
+        A_g = At.clone().requires_grad_(True)
+        b_g = bt.clone().requires_grad_(True)
+        g = torch.cos(bt)
+        sk.spd_solve_lanes(A_g, b_g).backward(g)
+        y = sk._chol_lanes_core(At, g)
+        worst["backward"] = max(
+            worst["backward"],
+            _check("spd_solve_lanes backward dA", A_g.grad,
+                   -y[:, None, :] * x_plain[None, :, :], (n, N)),
+            _check("spd_solve_lanes backward db", b_g.grad, y, (n, N)))
+        if (n, N) == SPD_TIMED:
+            timed["factor"] = _times(lambda: sk.spd_factor_lanes_cuda(At),
+                                     lambda: sk._chol_lanes_factor(At))
+            timed["substitute"] = _times(
+                lambda: sk.spd_substitute_lanes_cuda(Lp, bt),
+                lambda: sk._chol_lanes_substitute(Lp, bt))
+            timed["solve"] = _times(lambda: sk.spd_solve_lanes_cuda(At, bt),
+                                    lambda: sk._chol_lanes_core(At, bt))
+            for entry, t in timed.items():
+                print(f"[kernel] spd_{entry}_lanes (n, N) = {(n, N)}: "
+                      f"{_time_line(t)}", flush=True)
+    # NaN policy: one negative-definite system (env 5) poisons only its
+    # own column; every other env is bit for bit the clean result.
+    n, N = SPD_TIMED
+    At, bt = _spd_inputs(n, N, seed=n)
+    clean = sk.spd_substitute_lanes_cuda(sk.spd_factor_lanes_cuda(At), bt)
+    bad = At.clone()
+    bad[:, :, 5] = -torch.eye(n, device=At.device)
+    x = sk.spd_substitute_lanes_cuda(sk.spd_factor_lanes_cuda(bad), bt)
+    fused = sk.spd_solve_lanes_cuda(bad, bt)
+    torch.cuda.synchronize()
+    others = torch.ones(N, dtype=torch.bool, device=At.device)
+    others[5] = False
+    ok = (bool(torch.isnan(x[:, 5]).all()) and bool(torch.isnan(
+        fused[:, 5]).all()) and torch.equal(x[:, others], clean[:, others]))
+    print(f"[kernel] spd NaN policy (n, N) = {(n, N)}: negative pivot in env"
+          f" 5 -> NaN in its column only: {'ok' if ok else 'MISMATCH'}",
+          flush=True)
+    if not ok:
+        raise AssertionError("the SPD kernels break the NaN-pivot policy")
+    return {entry: {"max_abs_err": worst[entry], **timed[entry]}
+            for entry in ("factor", "substitute", "solve")}
 
 
 def _on_cuda(tensors, what):
@@ -153,71 +295,180 @@ def _on_cuda(tensors, what):
         raise AssertionError(f"{what}: tensors off the card: {bad}")
 
 
-def phase_adr():
+def _reset_launches():
+    from bayes_sim_ig_tpu_torch.ops import rff_kernel, spd_kernel
+    rff_kernel.LAUNCHES = 0
+    for entry in spd_kernel.LAUNCHES:
+        spd_kernel.LAUNCHES[entry] = 0
+
+
+def _read_launches():
+    from bayes_sim_ig_tpu_torch.ops import rff_kernel, spd_kernel
+    return {"rff_features": rff_kernel.LAUNCHES,
+            **{f"spd_{e}_lanes": c for e, c in spd_kernel.LAUNCHES.items()}}
+
+
+class _PhaseTimer:
+    """Seconds spent in the ADR loop's phases (PPO, collection, MDN
+    training, posterior), each timed between two synchronizes."""
+
+    def __init__(self):
+        from bayes_sim_ig_tpu_torch import bayes_sim_main, engine
+        from bayes_sim_ig_tpu_torch.rl import ppo
+        self.secs = collections.defaultdict(float)
+        self._targets = [(ppo.PPO, "run", "ppo.run"),
+                         (bayes_sim_main, "collect_trajectories", "collect"),
+                         (engine.BayesSim, "run_training",
+                          "bsim.run_training"),
+                         (engine.BayesSim, "predict", "bsim.predict")]
+        self._saved = []
+
+    def _wrap(self, fn, label):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.secs[label] += time.perf_counter() - t0
+            return out
+        return timed
+
+    def __enter__(self):
+        for owner, attr, label in self._targets:
+            fn = getattr(owner, attr)
+            self._saved.append((owner, attr, fn))
+            setattr(owner, attr, self._wrap(fn, label))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in self._saved:
+            setattr(owner, attr, fn)
+
+    def line(self):
+        return ", ".join(f"{k} {v:.2f} s" for k, v in self.secs.items())
+
+
+def _run_adr(task, cfg, name):
     from bayes_sim_ig_tpu_torch import bayes_sim_main
-    from bayes_sim_ig_tpu_torch.ops import rff_kernel
-    from bayes_sim_ig_tpu_torch.utils.args import load_config
-    shutil.rmtree(RUN_DIR, ignore_errors=True)
-    os.makedirs(RUN_DIR)
-    cfg = load_config(os.path.join(HERE, "bayes_sim_ig_tpu_torch", "cfg",
-                                   "cartpole.yaml"))
-    cfg["bayessim"].update(modelClass="MDRFF", trainTrajs=2000, realIters=2)
-    assert cfg["env"]["numEnvs"] == 512
-    assert cfg["bayessim"]["trainTrajLen"] == 20
-    assert cfg["bayessim"]["components"] == 10
-    cfg_path = os.path.join(RUN_DIR, "cartpole_mdrff.json")
+    run_dir = os.path.join(RUN_DIR, name)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    cfg_path = os.path.join(run_dir, f"{name}.json")
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
-    argv = ["--task", "Cartpole", "--cfg_env", cfg_path, "--logdir",
-            os.path.join(RUN_DIR, "logs"), "--max_iterations", "5",
+    argv = ["--task", task, "--cfg_env", cfg_path, "--logdir",
+            os.path.join(run_dir, "logs"), "--max_iterations", "5",
             "--seed", "0", "--rl_device", "cuda:0"]
-    rff_kernel.LAUNCHES = 0
+    # The loop's own printing (configs, posteriors) goes to a log file, so
+    # that this script's summary lines stay short.
+    log_path = os.path.join(run_dir, "loop.log")
+    _reset_launches()
     t0 = time.perf_counter()
-    out = bayes_sim_main.main(argv)
+    with open(log_path, "w") as log, contextlib.redirect_stdout(log), \
+            _PhaseTimer() as timer:
+        out = bayes_sim_main.main(argv)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = rff_kernel.LAUNCHES
-
-    if launches <= 0:
-        raise AssertionError("the ADR loop never launched rff_features")
-    model = out["bsim"].model
-    assert type(model).__name__ == "MDRFF"
-    assert tuple(model.rff.coeff.shape) == (302, 100), model.rff.coeff.shape
-    assert tuple(model.net.mu.weight.shape) == (130, 200)
-    _on_cuda(list(model.net.parameters()) + [model.rff.coeff], "MDRFF")
+    launches = _read_launches()
+    _on_cuda(list(out["bsim"].model.net.parameters()), "BayesSim model")
     _on_cuda(list(out["bsim"]._refit_model.net.parameters()), "refit MDNN")
     _on_cuda(list(out["ppo"].net.parameters()), "PPO policy")
     st = out["env"].state
     _on_cuda(list(st.task_state) + [st.params, st.progress, st.reset_buf,
                                     st.obs_corr, st.act_corr], "env state")
+    dim = out["env"].task.params_spec.dim
     ckpt = os.path.join(out["logdir"], "checkpoints")
     for it in (0, 1):
         with open(os.path.join(ckpt, f"posterior_{it}.pkl"), "rb") as f:
             post = pickle.load(f)
         for k in ("weights", "means", "covs"):
             if not np.isfinite(post[k]).all():
-                raise AssertionError(f"posterior_{it} {k} is not finite")
-        assert post["means"].shape[1] == 13, post["means"].shape
-    iter_secs = out["iter_secs"]
-    assert len(iter_secs) == 2
+                raise AssertionError(f"{name} posterior_{it} {k} is not "
+                                     f"finite")
+        assert post["means"].shape[1] == dim, post["means"].shape
+    assert len(out["iter_secs"]) == 2
+    return out, launches, secs, timer
+
+
+def phase_adr_ant():
+    from bayes_sim_ig_tpu_torch.utils.args import load_config
+    cfg = load_config(os.path.join(HERE, "bayes_sim_ig_tpu_torch", "cfg",
+                                   "ant.yaml"))
+    cfg["bayessim"].update(trainTrajs=2048, realIters=2)
+    bs = cfg["bayessim"]
+    assert cfg["env"]["numEnvs"] == 1024 and bs["trainTrajLen"] == 50
+    assert bs["modelClass"] == "MDNN" and bs["components"] == 10
+    assert bs["hiddenLayers"] == [128, 128]
+    assert bs["summarizerFxn"] == "summary_corrdiff"
+    out, launches, secs, timer = _run_adr("Ant", cfg, "ant")
+    for entry in ("spd_factor_lanes", "spd_substitute_lanes"):
+        if launches[entry] <= 0:
+            raise AssertionError(f"the Ant ADR loop never launched {entry}")
+    net = out["bsim"].model.net
+    assert type(out["bsim"].model).__name__ == "MDNN"
+    assert [l.out_features for l in net.trunk] == [128, 128]
+    assert net.mu.out_features == 17 * 10
+    ppo = out["ppo"]
+    assert [l.out_features for l in ppo.net.actor][:3] == [256, 128, 64]
+    assert ppo.nsteps == 16 and ppo.activation == "elu"
+    assert out["env"].num_envs == 1024
+    print(f"[adr] Ant 1024 envs, 2 ADR iterations in {secs:.2f} s (per "
+          f"iteration: {', '.join(f'{s:.2f}' for s in out['iter_secs'])} s;"
+          f" phases: {timer.line()}); launches {launches}; 17-dim "
+          f"posteriors finite; model, refit, policy and env tensors on cuda",
+          flush=True)
+    return launches
+
+
+def phase_adr_cartpole():
+    from bayes_sim_ig_tpu_torch.utils.args import load_config
+    cfg = load_config(os.path.join(HERE, "bayes_sim_ig_tpu_torch", "cfg",
+                                   "cartpole.yaml"))
+    cfg["bayessim"].update(modelClass="MDRFF", trainTrajs=2000, realIters=2)
+    assert cfg["env"]["numEnvs"] == 512
+    assert cfg["bayessim"]["trainTrajLen"] == 20
+    assert cfg["bayessim"]["components"] == 10
+    out, launches, secs, timer = _run_adr("Cartpole", cfg,
+                                          "cartpole_mdrff")
+    if launches["rff_features"] <= 0:
+        raise AssertionError("the ADR loop never launched rff_features")
+    model = out["bsim"].model
+    assert type(model).__name__ == "MDRFF"
+    assert tuple(model.rff.coeff.shape) == (302, 100), model.rff.coeff.shape
+    assert tuple(model.net.mu.weight.shape) == (130, 200)
+    _on_cuda([model.rff.coeff], "MDRFF frequencies")
     print(f"[adr] Cartpole+MDRFF 512 envs, 2 ADR iterations in {secs:.2f} s"
-          f" (per iteration: {', '.join(f'{s:.2f}' for s in iter_secs)} s);"
-          f" rff_features launches {launches}; posteriors finite; model, "
+          f" (per iteration: "
+          f"{', '.join(f'{s:.2f}' for s in out['iter_secs'])} s; phases: "
+          f"{timer.line()}); launches {launches}; posteriors finite; model, "
           f"refit, policy and env tensors on cuda", flush=True)
-    return launches, iter_secs
+    return launches
 
 
 def main():
     smi = phase_device()
     phase_build()
-    kern = phase_kernel()
-    launches, _ = phase_adr()
-    print(json.dumps({"kernels": [{
+    rff = phase_rff_kernel()
+    spd = phase_spd_kernel()
+    ant = phase_adr_ant()
+    cartpole = phase_adr_cartpole()
+    spd_src = "bayes_sim_ig_tpu_torch/csrc/spd_lanes.cu"
+    spd_tpu = "bayes_sim_ig_tpu/ops/spd_kernel.py:143"
+    kernels = [{
         "name": "rff_features", "route": "cuda",
         "source": "bayes_sim_ig_tpu_torch/csrc/rff_features.cu",
         "replaces": "bayes_sim_ig_tpu/ops/rff_kernel.py:50",
-        "launches": launches, "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"], "plain_ms": kern["plain_ms"]}]}))
+        "launches": cartpole["rff_features"],
+        "max_abs_err": rff["max_abs_err"], "ms": rff["ms"],
+        "plain_ms": rff["plain_ms"]}]
+    for entry in ("factor", "substitute"):
+        kernels.append({
+            "name": f"spd_{entry}_lanes", "route": "cuda",
+            "source": spd_src, "replaces": spd_tpu,
+            "launches": ant[f"spd_{entry}_lanes"],
+            "max_abs_err": spd[entry]["max_abs_err"],
+            "ms": spd[entry]["ms"], "plain_ms": spd[entry]["plain_ms"]})
+    print(json.dumps({"kernels": kernels}))
     print(f"[card] {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

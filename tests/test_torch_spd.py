@@ -1,0 +1,190 @@
+"""The port's batched SPD factor/solve (ops/spd_kernel.py): its plain
+versions against the JAX package's lanes Cholesky and its Pallas kernel
+(interpret mode, as tests/test_ops.py runs it), the NaN-pivot policy, K
+right-hand sides, the autograd backward against the Pallas VJP, the
+wrappers' dispatch on CPU tensors, and, on a CUDA card only, the
+hand-written kernels against the plain versions.
+
+Tolerances: the plain Cholesky against JAX's is the same algorithm in
+float32 with sums taken in another order, rtol 1e-5 / atol 1e-6 on
+systems A = M M^T + n I (condition number ~5); a Cholesky solve against
+the Pallas Gauss elimination, and gradients through two solves, rtol
+1e-4 / atol 1e-5."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from bayes_sim_ig_tpu.ops import spd_kernel as jspd
+from bayes_sim_ig_tpu_torch.ops import spd_kernel
+
+torch.set_num_threads(1)
+
+TIGHT = dict(rtol=1e-5, atol=1e-6)
+LOOSE = dict(rtol=1e-4, atol=1e-5)
+
+
+def _spd(n, N, seed=0, k=None):
+    """Env-last SPD systems At (n, n, N) = M M^T + n I and right-hand
+    sides (n, N), or (k, n, N) with ``k``."""
+    rs = np.random.RandomState(seed)
+    M = rs.randn(N, n, n)
+    A = M @ M.transpose(0, 2, 1) + n * np.eye(n)
+    At = np.ascontiguousarray(A.transpose(1, 2, 0)).astype(np.float32)
+    shape = (n, N) if k is None else (k, n, N)
+    return At, rs.randn(*shape).astype(np.float32)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+@pytest.mark.parametrize("n", [3, 14, 30])
+def test_plain_factor_matches_jax_lanes_cholesky(n):
+    At, _ = _spd(n, 7, seed=n)
+    want = np.asarray(jspd._chol_lanes_factor(jnp.asarray(At)))
+    got = spd_kernel._chol_lanes_factor(_t(At)).numpy()
+    np.testing.assert_allclose(got, want, **TIGHT)
+    # Lt[k] holds column k of L: zeros above the diagonal, exactly.
+    rows, cols = np.triu_indices(n, 1)
+    assert (got[cols, rows] == 0).all()
+
+
+@pytest.mark.parametrize("n", [3, 14, 30])
+def test_plain_substitute_matches_jax(n):
+    At, bt = _spd(n, 7, seed=n + 1)
+    Lt = np.asarray(jspd._chol_lanes_factor(jnp.asarray(At)))
+    want = np.asarray(jspd._chol_lanes_substitute(jnp.asarray(Lt),
+                                                  jnp.asarray(bt)))
+    got = spd_kernel._chol_lanes_substitute(_t(Lt), _t(bt)).numpy()
+    np.testing.assert_allclose(got, want, **TIGHT)
+    # And it solves the system.
+    x = got.astype(np.float64)
+    resid = np.einsum("ijn,jn->in", At.astype(np.float64), x) - bt
+    assert np.abs(resid).max() < 1e-4
+
+
+@pytest.mark.parametrize("n,N", [(3, 5), (14, 9)])
+def test_plain_solve_matches_pallas_interpret(n, N):
+    At, bt = _spd(n, N, seed=2 * n)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jspd._pallas_lanes(jnp.asarray(At),
+                                             jnp.asarray(bt)))
+    got = spd_kernel._chol_lanes_core(_t(At), _t(bt)).numpy()
+    np.testing.assert_allclose(got, want, **LOOSE)
+
+
+def test_nan_pivot_poisons_only_its_env():
+    """A pivot that is not > 0 (a negative one in env 1, an exact 0 in env
+    3) gives NaN in that env's column, as JAX's lanes Cholesky does (NaN,
+    not inf, for 0), and leaves the other envs' solutions untouched."""
+    n, N = 6, 5
+    At, bt = _spd(n, N, seed=3)
+    bad = At.copy()
+    bad[:, :, 1] = -np.eye(n, dtype=np.float32)
+    bad[:, :, 3] = 0.0
+    Lt = spd_kernel._chol_lanes_factor(_t(bad))
+    want_L = np.asarray(jspd._chol_lanes_factor(jnp.asarray(bad)))
+    np.testing.assert_array_equal(np.isnan(Lt.numpy()), np.isnan(want_L))
+    x = spd_kernel._chol_lanes_substitute(Lt, _t(bt)).numpy()
+    assert np.isnan(x[:, [1, 3]]).all()
+    good = [0, 2, 4]
+    ref = spd_kernel._chol_lanes_core(_t(At), _t(bt)).numpy()
+    np.testing.assert_array_equal(x[:, good], ref[:, good])
+    assert np.isfinite(x[:, good]).all()
+
+
+def test_k_right_hand_sides_equal_k_single_substitutes():
+    n, N, k = 14, 6, 4
+    At, bt = _spd(n, N, seed=5, k=k)
+    fac = spd_kernel.spd_factor_lanes(_t(At))
+    got = spd_kernel.spd_substitute_lanes(fac, _t(bt))
+    assert got.shape == (k, n, N)
+    for r in range(k):
+        one = spd_kernel.spd_substitute_lanes(fac, _t(bt[r]))
+        np.testing.assert_array_equal(got[r].numpy(), one.numpy())
+
+
+def test_autograd_backward_matches_pallas_vjp():
+    n, N = 5, 4
+    At, bt = _spd(n, N, seed=6)
+    g = np.random.RandomState(7).randn(n, N).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        x_j, vjp = jax.vjp(jspd._pallas_lanes_vjp, jnp.asarray(At),
+                           jnp.asarray(bt))
+        dA_j, db_j = vjp(jnp.asarray(g))
+    A_t = _t(At).requires_grad_(True)
+    b_t = _t(bt).requires_grad_(True)
+    x_t = spd_kernel.spd_solve_lanes(A_t, b_t)
+    x_t.backward(_t(g))
+    np.testing.assert_allclose(x_t.detach().numpy(), np.asarray(x_j),
+                               **LOOSE)
+    np.testing.assert_allclose(A_t.grad.numpy(), np.asarray(dA_j), **LOOSE)
+    np.testing.assert_allclose(b_t.grad.numpy(), np.asarray(db_j), **LOOSE)
+
+
+def test_cpu_factor_uses_the_plain_version_and_agrees_with_jax():
+    At, bt = _spd(14, 8, seed=8)
+    before = dict(spd_kernel.LAUNCHES)
+    kind, Lt = spd_kernel.spd_factor_lanes(_t(At))
+    assert kind == "chol_lanes"
+    assert torch.equal(Lt, spd_kernel._chol_lanes_factor(_t(At)))
+    np.testing.assert_allclose(
+        Lt.numpy(), np.asarray(jspd._chol_lanes_factor(jnp.asarray(At))),
+        **TIGHT)
+    # The JAX package's own CPU route (XLA Cholesky) solves the same x.
+    fac_j = jspd.spd_factor_lanes(jnp.asarray(At))
+    np.testing.assert_allclose(
+        spd_kernel.spd_substitute_lanes((kind, Lt), _t(bt)).numpy(),
+        np.asarray(jspd.spd_substitute_lanes(fac_j, jnp.asarray(bt))),
+        **LOOSE)
+    assert spd_kernel.LAUNCHES == before
+
+
+def test_standard_layout_solve():
+    rs = np.random.RandomState(9)
+    M = rs.randn(2, 3, 4, 4)
+    A = (M @ np.swapaxes(M, -1, -2) + 4 * np.eye(4)).astype(np.float32)
+    b = rs.randn(2, 3, 4).astype(np.float32)
+    got = spd_kernel.spd_solve(_t(A), _t(b)).numpy()
+    np.testing.assert_allclose(got, np.linalg.solve(A, b[..., None])[..., 0],
+                               **LOOSE)
+
+
+@pytest.mark.parametrize("fn,args", [
+    ("spd_factor_lanes_cuda", ((3, 3, 4),)),
+    ("spd_substitute_lanes_cuda", ((3, 3, 4), (3, 4))),
+    ("spd_solve_lanes_cuda", ((3, 3, 4), (3, 4))),
+])
+def test_kernel_wrappers_refuse_cpu_tensors(fn, args):
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(spd_kernel, fn)(*[torch.zeros(s) for s in args])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,N,k", [(14, 1024, 1), (14, 1, 1), (5, 17, 4),
+                                   (30, 1024, 4)])
+def test_kernels_match_plain_on_card(n, N, k):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    At, bt = _spd(n, N, seed=n, k=k)
+    At[:, :, 0] = -np.eye(n, dtype=np.float32)  # a NaN pivot in env 0
+    A_c, b_c = _t(At).cuda(), _t(bt).cuda()
+    before = dict(spd_kernel.LAUNCHES)
+    Lt = spd_kernel.spd_factor_lanes(A_c)[1]
+    x = spd_kernel.spd_substitute_lanes(("chol_lanes", Lt), b_c)
+    torch.cuda.synchronize()
+    assert spd_kernel.LAUNCHES["factor"] == before["factor"] + 1
+    assert spd_kernel.LAUNCHES["substitute"] == before["substitute"] + 1
+    torch.testing.assert_close(Lt, spd_kernel._chol_lanes_factor(A_c),
+                               equal_nan=True, **LOOSE)
+    torch.testing.assert_close(
+        x, spd_kernel._chol_lanes_substitute(Lt, b_c), equal_nan=True,
+        **LOOSE)
+    assert torch.isnan(x[..., 0]).all() and torch.isfinite(x[..., 1:]).all()
+    fused = spd_kernel.spd_solve_lanes(A_c, b_c[0])
+    torch.testing.assert_close(fused, x[0], equal_nan=True, **LOOSE)
