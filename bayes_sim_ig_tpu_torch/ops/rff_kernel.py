@@ -17,7 +17,9 @@ import torch
 LAUNCHES = 0
 
 _FN = None
-_MAX_ROWS = 65535 * 32  # gridDim.y limit times the kernel's TILE_B
+# Frequency tiles of 32 lie on gridDim.y (row tiles on gridDim.x bound
+# nothing an int32 B can reach).
+_MAX_FREQS = 65535 * 32
 
 
 def rff_features_reference(x: torch.Tensor, coeff: torch.Tensor,
@@ -58,9 +60,9 @@ def rff_features_cuda(x: torch.Tensor, coeff: torch.Tensor,
         raise ValueError("rff_features_cuda needs contiguous x and coeff")
     b, d = x.shape
     m = coeff.shape[1]
-    if b > _MAX_ROWS:
-        raise ValueError(f"rff_features_cuda takes at most {_MAX_ROWS} rows "
-                         f"(the grid's y limit), got {b}")
+    if m > _MAX_FREQS:
+        raise ValueError(f"rff_features_cuda takes at most {_MAX_FREQS} "
+                         f"frequencies (the grid's y limit), got {m}")
     out = torch.empty((b, 2 * m), dtype=torch.float32, device=x.device)
     fn = _kernel_fn()
     with torch.cuda.device(x.device):

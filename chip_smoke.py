@@ -10,7 +10,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   3. kernels vs plain, on the card at the main paths' shapes with the
      stated tolerances; the median time per call of both over 50 calls
      (CUDA events) and their device time per call (torch.profiler):
-     - rff_features (csrc/rff_features.cu) at the MDRFF shapes;
+     - rff_features (csrc/rff_features.cu) at the MDRFF shapes (timed
+       at B = 1, 100, 200 and 1000), with x one row into a larger tensor
+       (8-B and 4-B aligned bases), and at phases of ~500 rad against
+       float64 under a d 2^-23 sum|x coeff| bound;
      - the SPD factor, substitute (K = 1 and K = 4), fused solve and the
        solve's autograd backward (csrc/spd_lanes.cu) at (n, N) = (14,
        1024) (Ant), (14, 1), (14, 4096), (30, 1024) and (5, 17), and the
@@ -55,10 +58,19 @@ RUN_DIR = os.path.join(HERE, "runs", "chip_smoke")
 # rtol/atol of the JAX package's own kernel test (tests/test_ops.py:31-32).
 RFF_RTOL, RFF_ATOL = 2e-4, 1e-5
 # (B, d, m): a training minibatch, the test split, one prediction, a whole
-# chunk, and a ragged toy shape.
+# chunk, one row past a chunk, the 16-row tile, and a ragged toy shape.
 RFF_SHAPES = [(100, 302, 100), (200, 302, 100), (1, 302, 100),
-              (1000, 302, 100), (17, 3, 64)]
+              (1000, 302, 100), (1025, 302, 100), (300, 302, 100),
+              (17, 3, 64)]
 RFF_TIMED = (100, 302, 100)
+# Shapes whose times go into the kernels line: the path's B at d 302.
+RFF_TIMED_B = (1, 100, 200, 1000)
+# x one row into a larger tensor (the test split x_data[n_train:]): base
+# offsets of 1,208 B (d 302) and 1,204 B (d 301).
+RFF_MISALIGNED = [(100, 302, 100), (1, 302, 100), (100, 301, 100)]
+# Phases of ~500 rad, held against float64 under a d 2^-23 sum|x coeff|
+# bound (a reordered float32 sum stays inside it).
+RFF_LARGE_PHASE = 500.0
 
 # The SPD kernels against their plain versions: float32 with sums in
 # another order, on systems A = M M^T + n I (condition number ~5).
@@ -159,38 +171,95 @@ def _time_line(t):
             f"{_fmt(t['plain_dev_ms'])}")
 
 
+def _rff_inputs(b, d, m, rows_before=0):
+    """x (B, d) and coeff (d, m) on the card; with rows_before, x is a
+    view that many rows into a larger tensor."""
+    rs = np.random.RandomState(0)
+    dev = torch.device("cuda:0")
+    big = torch.as_tensor(rs.randn(b + rows_before, d), dtype=torch.float32,
+                          device=dev)
+    coeff = torch.as_tensor(rs.randn(d, m) * 0.3, dtype=torch.float32,
+                            device=dev)
+    return big[rows_before:], coeff
+
+
+def _rff_check(what, got, want, b, m):
+    torch.cuda.synchronize()
+    assert got.shape == (b, 2 * m) and torch.isfinite(got).all()
+    err = (got - want).abs()
+    max_abs = float(err.max())
+    max_rel = float((err / want.abs().clamp_min(1e-30)).max())
+    ok = bool(torch.allclose(got, want, rtol=RFF_RTOL, atol=RFF_ATOL))
+    line = (f"[kernel] rff_features {what}: max_abs_err {max_abs:.3e} "
+            f"max_rel_err {max_rel:.3e} (rtol {RFF_RTOL}, atol {RFF_ATOL}) "
+            f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        print(line, flush=True)
+        raise AssertionError(f"rff_features disagrees with its plain "
+                             f"version at {what}")
+    return max_abs, line
+
+
+def _rff_large_phase(b, d, m, a):
+    """The kernel and its plain version against float64 at phases of
+    RFF_LARGE_PHASE rad, under a d 2^-23 sum_k |x_k coeff_k| + atol bound."""
+    from bayes_sim_ig_tpu_torch.ops import rff_kernel
+    x, coeff = _rff_inputs(b, d, m)
+    x64, c64 = x.double(), coeff.double()
+    x = (x * (RFF_LARGE_PHASE / float((x64 @ c64).abs().max()))).contiguous()
+    x64 = x.double()
+    inner = x64 @ c64
+    want = a * torch.cat([torch.cos(inner), torch.sin(inner)], dim=-1)
+    mag = a * d * 2.0 ** -23 * (x64.abs() @ c64.abs()) + RFF_ATOL
+    bound = torch.cat([mag, mag], dim=-1)
+    got = rff_kernel.rff_features_cuda(x, coeff, a)
+    plain = rff_kernel.rff_features_reference(x, coeff, a)
+    torch.cuda.synchronize()
+    err = (got.double() - want).abs()
+    plain_err = (plain.double() - want).abs()
+    ok = bool((err <= bound).all()) and bool((plain_err <= bound).all())
+    print(f"[kernel] rff_features large phase B={b} d={d} m={m} (max |phase|"
+          f" {float(inner.abs().max()):.1f} rad) vs float64: kernel max_abs"
+          f"_err {float(err.max()):.3e}, plain {float(plain_err.max()):.3e}, "
+          f"bound >= {float(bound.min()):.3e}, worst share of the bound "
+          f"kernel {float((err / bound).max()):.3e} plain "
+          f"{float((plain_err / bound).max()):.3e} "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        raise AssertionError(f"rff_features leaves the float64 bound at "
+                             f"large phases, B={b} d={d} m={m}")
+
+
 def phase_rff_kernel():
     from bayes_sim_ig_tpu_torch.ops import rff_kernel
-    dev = torch.device("cuda:0")
     a = 0.1
     worst = 0.0
-    timed = None
+    times = {}
     for b, d, m in RFF_SHAPES:
-        rs = np.random.RandomState(0)
-        x = torch.as_tensor(rs.randn(b, d), dtype=torch.float32, device=dev)
-        coeff = torch.as_tensor(rs.randn(d, m) * 0.3, dtype=torch.float32,
-                                device=dev)
-        got = rff_kernel.rff_features_cuda(x, coeff, a)
-        want = rff_kernel.rff_features_reference(x, coeff, a)
-        torch.cuda.synchronize()
-        assert got.shape == (b, 2 * m) and torch.isfinite(got).all()
-        err = (got - want).abs()
-        max_abs = float(err.max())
-        max_rel = float((err / want.abs().clamp_min(1e-30)).max())
-        ok = bool(torch.allclose(got, want, rtol=RFF_RTOL, atol=RFF_ATOL))
-        t = _times(lambda: rff_kernel.rff_features_cuda(x, coeff, a),
-                   lambda: rff_kernel.rff_features_reference(x, coeff, a))
-        print(f"[kernel] rff_features B={b} d={d} m={m}: max_abs_err "
-              f"{max_abs:.3e} max_rel_err {max_rel:.3e} (rtol {RFF_RTOL}, "
-              f"atol {RFF_ATOL}) {'ok' if ok else 'MISMATCH'} | "
-              f"{_time_line(t)}", flush=True)
-        if not ok:
-            raise AssertionError(f"rff_features disagrees with its plain "
-                                 f"version at B={b} d={d} m={m}")
+        x, coeff = _rff_inputs(b, d, m)
+        max_abs, line = _rff_check(
+            f"B={b} d={d} m={m}", rff_kernel.rff_features_cuda(x, coeff, a),
+            rff_kernel.rff_features_reference(x, coeff, a), b, m)
         worst = max(worst, max_abs)
-        if (b, d, m) == RFF_TIMED:
-            timed = t
-    return {"max_abs_err": worst, **timed}
+        if d == 302 and m == 100 and b in RFF_TIMED_B:
+            times[b] = _times(
+                lambda: rff_kernel.rff_features_cuda(x, coeff, a),
+                lambda: rff_kernel.rff_features_reference(x, coeff, a))
+            line += f" | {_time_line(times[b])}"
+        print(line, flush=True)
+    for b, d, m in RFF_MISALIGNED:
+        x, coeff = _rff_inputs(b, d, m, rows_before=1)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+        max_abs, line = _rff_check(
+            f"B={b} d={d} m={m}, x at a {x.data_ptr() % 16} B offset from 16 "
+            f"B", rff_kernel.rff_features_cuda(x, coeff, a),
+            rff_kernel.rff_features_reference(x.clone(), coeff, a), b, m)
+        worst = max(worst, max_abs)
+        print(line, flush=True)
+    for b in (1, 100, 1000):
+        _rff_large_phase(b, 302, 100, a)
+    return {"max_abs_err": worst, **times[RFF_TIMED[0]],
+            "times": {f"B={b}": times[b] for b in RFF_TIMED_B}}
 
 
 def _spd_inputs(n, N, k=None, seed=0):
@@ -460,7 +529,7 @@ def main():
         "replaces": "bayes_sim_ig_tpu/ops/rff_kernel.py:50",
         "launches": cartpole["rff_features"],
         "max_abs_err": rff["max_abs_err"], "ms": rff["ms"],
-        "plain_ms": rff["plain_ms"]}]
+        "plain_ms": rff["plain_ms"], "times": rff["times"]}]
     for entry in ("factor", "substitute"):
         kernels.append({
             "name": f"spd_{entry}_lanes", "route": "cuda",

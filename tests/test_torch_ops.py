@@ -1,7 +1,8 @@
 """The port's RFF projection: its plain version against the JAX Pallas
 kernel (interpret mode, as tests/test_ops.py runs it) and the JAX
-reference, the wrapper's dispatch on CPU tensors, and, on a CUDA card
-only, the hand-written kernel against the plain version."""
+reference, both against float64 at large phases, the wrapper's dispatch
+on CPU tensors, and, on a CUDA card only, the hand-written kernel against
+the plain version (every row tile, vector width and a misaligned base)."""
 
 import numpy as np
 import pytest
@@ -25,8 +26,33 @@ def _inputs(b, d, m, seed=0):
             (rs.randn(d, m) * 0.3).astype(np.float32))
 
 
+def _large_phase_inputs(b, d, m, phase=500.0):
+    """x scaled so that max |x @ coeff| is ``phase`` radians."""
+    x, coeff = _inputs(b, d, m, seed=1)
+    scale = phase / np.abs(x.astype(np.float64) @ coeff).max()
+    return (x * scale).astype(np.float32), coeff
+
+
+def _float64_features_and_bound(x, coeff, a):
+    """a [cos, sin](x @ coeff) in float64, and the float32 bound
+    a d 2^-23 sum_k |x_k coeff_k| + ATOL: a sum of d float32 products
+    taken in any order stays within it, and at phases of hundreds of
+    radians no fixed rtol tells a reordered sum from a wrong one."""
+    x64, c64 = x.astype(np.float64), coeff.astype(np.float64)
+    inner = x64 @ c64
+    want = a * np.concatenate([np.cos(inner), np.sin(inner)], axis=-1)
+    mag = a * x.shape[1] * 2.0 ** -23 * (np.abs(x64) @ np.abs(c64)) + ATOL
+    return want, np.concatenate([mag, mag], axis=-1), np.abs(inner).max()
+
+
+def _assert_within(got, want, bound):
+    excess = np.abs(np.asarray(got, np.float64) - want) - bound
+    assert excess.max() <= 0.0, f"exceeds the float64 bound by {excess.max()}"
+
+
 @pytest.mark.parametrize("b,d,m", [(100, 40, 100), (17, 3, 64),
-                                   (50, 302, 100)])
+                                   (50, 302, 100), (1, 302, 100),
+                                   (100, 302, 100), (200, 302, 100)])
 def test_reference_matches_jax_pallas_and_reference(b, d, m):
     x, coeff = _inputs(b, d, m)
     a = 0.1
@@ -40,6 +66,18 @@ def test_reference_matches_jax_pallas_and_reference(b, d, m):
     np.testing.assert_allclose(got.numpy(),
                                np.asarray(jax_reference(x, coeff, a)),
                                rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("b,d,m", [(1, 302, 100), (100, 302, 100)])
+def test_large_phases_within_float64_bound(b, d, m):
+    x, coeff = _large_phase_inputs(b, d, m)
+    a = 0.1
+    want, bound, max_phase = _float64_features_and_bound(x, coeff, a)
+    assert 400.0 < max_phase < 600.0
+    got = rff_kernel.rff_features_reference(torch.from_numpy(x),
+                                            torch.from_numpy(coeff), a)
+    _assert_within(got.numpy(), want, bound)
+    _assert_within(jax_reference(x, coeff, a), want, bound)
 
 
 def test_cpu_tensors_take_the_plain_version_without_launching():
@@ -74,12 +112,21 @@ def test_rff_module_features_match_jax():
                                rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,d,m", [(100, 302, 100), (1, 302, 100),
-                                   (17, 3, 64)])
-def test_kernel_matches_plain_on_card(b, d, m):
+def _needs_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+
+
+# B spans the four row tiles (1, 8, 16 and 32 rows; on 132 SMs at m = 100
+# 1 row up to B = 33, 32 rows from B = 529) and their ragged edges;
+# d = 302 takes 8-B copies of x, 301 4-B copies, 3 a slice shorter than
+# one warp's share of K.
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,m", [(17, 3, 64)] + [
+    (b, d, 100) for b in (1, 7, 33, 34, 100, 200, 300, 1000, 1025)
+    for d in (302, 301, 3)])
+def test_kernel_matches_plain_on_card(b, d, m):
+    _needs_card()
     x, coeff = _inputs(b, d, m)
     xc, cc = torch.from_numpy(x).cuda(), torch.from_numpy(coeff).cuda()
     before = rff_kernel.LAUNCHES
@@ -88,3 +135,34 @@ def test_kernel_matches_plain_on_card(b, d, m):
     torch.cuda.synchronize()
     assert rff_kernel.LAUNCHES == before + 1
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+# x one row into a larger tensor, as the test split x_data[n_train:] is:
+# a base offset of 1,208 B (d = 302, 8-B aligned) or 1,204 B (d = 301,
+# 4-B aligned).
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 100, 200])
+@pytest.mark.parametrize("d", [302, 301])
+def test_kernel_takes_a_misaligned_base_on_card(b, d):
+    _needs_card()
+    big, coeff = _inputs(b + 1, d, 100)
+    bigc = torch.from_numpy(big).cuda()
+    xc, cc = bigc[1:], torch.from_numpy(coeff).cuda()
+    assert xc.is_contiguous() and xc.data_ptr() - bigc.data_ptr() == 4 * d
+    got = rff_kernel.rff_features(xc, cc, 0.1)
+    want = rff_kernel.rff_features_reference(xc.clone(), cc, 0.1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 100, 200, 1000])
+def test_kernel_large_phases_within_float64_bound_on_card(b):
+    _needs_card()
+    x, coeff = _large_phase_inputs(b, 302, 100)
+    want, bound, _ = _float64_features_and_bound(x, coeff, 0.1)
+    xc, cc = torch.from_numpy(x).cuda(), torch.from_numpy(coeff).cuda()
+    got = rff_kernel.rff_features(xc, cc, 0.1)
+    plain = rff_kernel.rff_features_reference(xc, cc, 0.1)
+    _assert_within(got.cpu().numpy(), want, bound)
+    _assert_within(plain.cpu().numpy(), want, bound)
