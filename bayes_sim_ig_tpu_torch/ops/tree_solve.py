@@ -1,0 +1,402 @@
+"""Branch-sparse L^T D L factor and solve for articulated mass matrices,
+env-last ("lanes") layout.
+
+Port of ``bayes_sim_ig_tpu/ops/tree_solve.py``. The CRBA mass matrix of a
+kinematic tree is nonzero only at the ancestor pairs of the expanded dof
+tree (M[k, i] != 0 iff i is an ancestor-or-self of k), and with dofs
+ordered so that parents precede children its M = L^T D L factor fills in
+only at those same pairs (Featherstone, RBDA ch. 6). The solver touches
+only the E ancestor pairs: Humanoid's 27 dofs have E = 243 of 378
+lower-triangle entries.
+
+Two forms of every function:
+  * the JAX package's signatures (``ltdl_factor``, ``ltdl_factor_ll``,
+    ``ltdl_substitute``, ``ltdl_upsolve``, ``ltdl_downsolve``,
+    ``ltdl_solve``): chains plus a dict {(k, i): (.., N) row} of values at
+    ``ancestor_pairs(chains)``; plain PyTorch on any device;
+  * tensor form, for the physics and the kernel: pair values stacked as
+    Mp (E, N) in ``ancestor_pairs`` order, the factor payload (H (E, N),
+    D (nv, N)), right-hand sides (nv, N) or (K, nv, N). ``tree_factor`` and
+    ``tree_substitute`` run the plain version on a CPU tensor and launch
+    the hand-written kernel of ``csrc/tree_ltdl.cu`` on a CUDA tensor,
+    with no fallback: a CUDA tensor the kernel does not take raises, and
+    so does a failed build or launch.
+
+NaN policy (as the JAX package's): a pivot that is not > 0 gives NaN in D,
+in that env only, so an indefinite system surfaces through the env step's
+non-finite quarantine. The L entries divide by the raw pivot.
+
+H holds the factor at every pair: L[k, i] at the off-diagonal pairs and
+the raw pivots on the diagonal; D holds the pivots under the NaN policy.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+# Kernel launches made by this process, by entry point; read and reset by
+# callers that must show a run went through the kernels.
+LAUNCHES = {"factor": 0, "substitute": 0}
+
+# csrc/tree_ltdl.cu bounds: dofs, ancestor pairs, right-hand sides.
+MAX_NV = 256
+MAX_PAIRS = 1024
+_MAX_RHS = 65535
+
+_FNS = None
+_TABLES: dict = {}
+
+
+def ancestor_pairs(chains: Sequence[Sequence[int]]) -> List[Tuple[int, int]]:
+    """All (k, i) with i an ancestor-or-self of k, k major order: (k, k)
+    then (k, i) for i in ``chains[k]`` (model.dof_anc_chains: k's proper
+    ancestors, leaf to root)."""
+    pairs = []
+    for k, ch in enumerate(chains):
+        pairs.append((k, k))
+        pairs.extend((k, i) for i in ch)
+    return pairs
+
+
+class TreeTables:
+    """Static index tables of one dof tree, built once per chains list
+    (``tree_tables``). Pairs of dof k occupy rows off[k] .. off[k+1]-1 of
+    the stacked (E, N) layout: (k, k) first, then (k, chains[k][t]) at
+    off[k] + 1 + t."""
+
+    def __init__(self, chains: Sequence[Sequence[int]]):
+        self.chains = [list(c) for c in chains]
+        self.nv = nv = len(self.chains)
+        self.pairs = ancestor_pairs(self.chains)
+        self.E = len(self.pairs)
+        self.index = {p: n for n, p in enumerate(self.pairs)}
+        self.parent = [c[0] if c else -1 for c in self.chains]
+        self.off = [self.index[(k, k)] for k in range(nv)] + [self.E]
+        self.diag = self.off[:nv]
+        self.mean_depth = sum(len(c) for c in self.chains) / max(nv, 1)
+        # contributors[k] = [(c, t)] with k == chains[c][t] (the
+        # left-looking form's descendants of k).
+        self.contributors: List[List[Tuple[int, int]]] = [[] for _ in
+                                                           range(nv)]
+        for c in range(nv):
+            for t, k in enumerate(self.chains[c]):
+                self.contributors[k].append((c, t))
+        # The layout the kernel walks: every parent precedes its child, and
+        # every chain is its parent's chain behind the parent.
+        self.tree_ordered = all(
+            p < k and (p < 0 or ch[1:] == self.chains[p])
+            for k, (p, ch) in enumerate(zip(self.parent, self.chains)))
+        self._device: dict = {}
+
+    def device_table(self, device) -> torch.Tensor:
+        """int32 [parent (nv), off (nv + 1)] on ``device``, the kernel's
+        table; copied once per device."""
+        device = torch.device(device)
+        t = self._device.get(device)
+        if t is None:
+            t = torch.as_tensor(np.asarray(self.parent + self.off, np.int32),
+                                device=device)
+            self._device[device] = t
+        return t
+
+
+def tree_tables(chains: Sequence[Sequence[int]]) -> TreeTables:
+    key = tuple(tuple(c) for c in chains)
+    tt = _TABLES.get(key)
+    if tt is None:
+        tt = _TABLES[key] = TreeTables(chains)
+    return tt
+
+
+# --------------------------------------------------------------------- #
+# Plain PyTorch versions over lists of pair rows (the CPU path and the
+# kernels' reference).
+# --------------------------------------------------------------------- #
+def _nan_pivots(rows):
+    return [torch.where(h > 0.0, h, torch.full_like(h, float("nan")))
+            for h in rows]
+
+
+def _factor_rows(tt: TreeTables, rows):
+    """Right-looking sparse L^T D L (RBDA Table 6.3, expanded loops): as
+    dof k is eliminated, leaf to root, every pair it affects is updated.
+    rows: E pair rows in ``tt.pairs`` order -> (H rows, D rows)."""
+    H = list(rows)
+    ix, parent = tt.index, tt.parent
+    for k in range(tt.nv - 1, -1, -1):
+        i = parent[k]
+        while i >= 0:
+            a = H[ix[(k, i)]] / H[ix[(k, k)]]
+            j = i
+            while j >= 0:
+                H[ix[(i, j)]] = H[ix[(i, j)]] - a * H[ix[(k, j)]]
+                j = parent[j]
+            H[ix[(k, i)]] = a
+            i = parent[i]
+    return H, _nan_pivots([H[d] for d in tt.diag])
+
+
+def _factor_ll_rows(tt: TreeTables, rows):
+    """Left-looking column form of ``_factor_rows``: dof k's column is
+    assembled once, from the final columns of its descendants,
+
+        col(k) = M[k, anc-or-self(k)] - sum_{c in desc(k)} a_c[t] v_c[t:]
+
+    (t = k's position in c's chain, v_c = c's column, a_c = v_c[1:] /
+    pivot_c): a few stacked ops per dof instead of O(depth^2) row ops.
+    Sums in another order than the right-looking form: equal up to
+    float32 rounding."""
+    nv, chains, off = tt.nv, tt.chains, tt.off
+    v: List[torch.Tensor] = [None] * nv  # final columns, (1 + d_k, .., N)
+    a: List[torch.Tensor] = [None] * nv  # v[1:] / pivot, (d_k, .., N)
+    for k in range(nv - 1, -1, -1):
+        col = torch.stack(rows[off[k]:off[k + 1]])
+        if tt.contributors[k]:
+            w = torch.stack([a[c][t] for (c, t) in tt.contributors[k]])
+            src = torch.stack([v[c][1 + t:] for (c, t) in tt.contributors[k]])
+            col = col - (w[:, None] * src).sum(0)
+        v[k] = col
+        if chains[k]:
+            a[k] = col[1:] / col[0]
+    H: List[torch.Tensor] = []
+    for k in range(nv):
+        H.append(v[k][0])
+        H.extend(a[k].unbind(0) if chains[k] else ())
+    return H, _nan_pivots([v[k][0] for k in range(nv)])
+
+
+def _substitute_rows(tt: TreeTables, H, D, b_rows):
+    """z = L^-T b (up the tree), z /= D, x = L^-1 z (down the tree). H:
+    pair rows in ``tt.pairs`` order (the diagonal is not read); D, b_rows:
+    nv rows. Rows broadcast, so (K, N) right-hand-side rows take (N,)
+    factor rows."""
+    nv, chains, off = tt.nv, tt.chains, tt.off
+    x = list(b_rows)
+    for k in range(nv - 1, -1, -1):
+        for t, i in enumerate(chains[k]):
+            x[i] = x[i] - H[off[k] + 1 + t] * x[k]
+    x = [x[k] / D[k] for k in range(nv)]
+    for k in range(nv):
+        acc = x[k]
+        for t, i in enumerate(chains[k]):
+            acc = acc - H[off[k] + 1 + t] * x[i]
+        x[k] = acc
+    return x
+
+
+# --------------------------------------------------------------------- #
+# The JAX package's API (dicts keyed by pair, lists of rows).
+# --------------------------------------------------------------------- #
+def _pair_rows(tt: TreeTables, M: Dict[Tuple[int, int], torch.Tensor]):
+    return [M[p] for p in tt.pairs]
+
+
+def ltdl_factor(chains: Sequence[Sequence[int]],
+                M: Dict[Tuple[int, int], torch.Tensor]):
+    """Factorizes M = L^T D L for an SPD tree-sparse system in lanes
+    layout. Returns (H, D): H a dict {(k, i): (N,)} over the ancestor
+    pairs (L at the off-diagonal pairs), D a length-nv list of (N,)
+    pivots (NaN where the pivot is not > 0). Reusable across right-hand
+    sides (``ltdl_substitute``)."""
+    tt = tree_tables(chains)
+    H, D = _factor_rows(tt, _pair_rows(tt, M))
+    return dict(zip(tt.pairs, H)), D
+
+
+def ltdl_factor_ll(chains: Sequence[Sequence[int]],
+                   M: Dict[Tuple[int, int], torch.Tensor]):
+    """Left-looking form of ``ltdl_factor``: the same (H, D) contract,
+    assembled one dof column at a time (fewer, larger ops on deep
+    chains)."""
+    tt = tree_tables(chains)
+    H, D = _factor_ll_rows(tt, _pair_rows(tt, M))
+    return dict(zip(tt.pairs, H)), D
+
+
+def ltdl_substitute(chains: Sequence[Sequence[int]], factor,
+                    b_rows: Sequence[torch.Tensor]):
+    """Solves (L^T D L) x = b given an ``ltdl_factor`` result. Returns the
+    list of nv rows."""
+    H, D = factor
+    tt = tree_tables(chains)
+    return _substitute_rows(tt, [H.get(p) for p in tt.pairs], D, b_rows)
+
+
+def ltdl_upsolve(chains: Sequence[Sequence[int]], H,
+                 x: Dict[int, torch.Tensor], dofs: Sequence[int]):
+    """Applies L^-T only (the up pass of ``ltdl_substitute``) to rows
+    supported on the ancestor-closed dof set ``dofs``; x: {dof: (.., N)}.
+    Fill spreads only from a dof to its ancestors, so the pass restricted
+    to the closure is exact. Mutates and returns ``x``."""
+    for k in sorted(dofs, reverse=True):
+        for i in chains[k]:
+            x[i] = x[i] - H[(k, i)] * x[k]
+    return x
+
+
+def ltdl_downsolve(chains: Sequence[Sequence[int]], H,
+                   rows: Sequence[torch.Tensor]):
+    """Applies L^-1 only (the down pass of ``ltdl_substitute``) to a full
+    nv-row vector: x[k] = rows[k] - sum_i H[(k, i)] x[i], ascending."""
+    x = list(rows)
+    for k in range(len(chains)):
+        acc = x[k]
+        for i in chains[k]:
+            acc = acc - H[(k, i)] * x[i]
+        x[k] = acc
+    return x
+
+
+def ltdl_solve(chains: Sequence[Sequence[int]],
+               M: Dict[Tuple[int, int], torch.Tensor],
+               b_rows: Sequence[torch.Tensor]):
+    """Solves M x = b for SPD tree-sparse systems in lanes layout: M a
+    dict over exactly ``ancestor_pairs(chains)``, b_rows nv (N,) rows.
+    Returns the list of nv solution rows."""
+    return ltdl_substitute(chains, ltdl_factor(chains, M), b_rows)
+
+
+# --------------------------------------------------------------------- #
+# Tensor form: plain versions.
+# --------------------------------------------------------------------- #
+def ltdl_factor_plain(chains, Mp: torch.Tensor, left_looking: bool = False):
+    """Mp (E, N) pair values in ``ancestor_pairs`` order -> (H (E, N),
+    D (nv, N)), by the right-looking or the left-looking form."""
+    tt = tree_tables(chains)
+    fn = _factor_ll_rows if left_looking else _factor_rows
+    H, D = fn(tt, list(Mp.unbind(0)))
+    return torch.stack(H), torch.stack(D)
+
+
+def ltdl_substitute_plain(chains, factor, b: torch.Tensor) -> torch.Tensor:
+    """factor (H (E, N), D (nv, N)), b (nv, N) or (K, nv, N) -> x shaped as
+    b."""
+    H, D = factor
+    tt = tree_tables(chains)
+    x = _substitute_rows(tt, list(H.unbind(0)), list(D.unbind(0)),
+                         list(b.unbind(-2)))
+    return torch.stack(x, -2)
+
+
+# --------------------------------------------------------------------- #
+# Tensor form: the CUDA kernels.
+# --------------------------------------------------------------------- #
+def _kernel_fns():
+    global _FNS
+    if _FNS is None:
+        from .build import load_library
+        lib = load_library("tree_ltdl", ["tree_ltdl.cu"])
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.tree_ltdl_factor_f32.argtypes = [ptr, i32, i32, ptr, ptr, ptr,
+                                             i32, ptr]
+        lib.tree_ltdl_substitute_f32.argtypes = [ptr, i32, i32, ptr, ptr,
+                                                 ptr, ptr, i32, i32, ptr]
+        for fn in (lib.tree_ltdl_factor_f32, lib.tree_ltdl_substitute_f32):
+            fn.restype = ctypes.c_int
+        _FNS = {"factor": lib.tree_ltdl_factor_f32,
+                "substitute": lib.tree_ltdl_substitute_f32}
+    return _FNS
+
+
+def _check_cuda(name, *tensors):
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{name} needs all tensors on one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"{name} takes float32, got "
+                        f"{[t.dtype for t in tensors]}")
+    if any(t.requires_grad for t in tensors):
+        raise ValueError(f"{name} has no backward: its inputs must not "
+                         f"require a gradient")
+
+
+def _kernel_tables(name, chains) -> TreeTables:
+    tt = tree_tables(chains)
+    if not 1 <= tt.nv <= MAX_NV or tt.E > MAX_PAIRS:
+        raise ValueError(f"{name} takes nv <= {MAX_NV} and at most "
+                         f"{MAX_PAIRS} pairs, got nv = {tt.nv}, {tt.E} pairs")
+    if not tt.tree_ordered:
+        raise ValueError(f"{name} needs chains[k] == [parent, *chains[parent]]"
+                         f" with parent < k for every dof")
+    return tt
+
+
+def _launch(entry, dev, *args):
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _kernel_fns()[entry](*args, stream)
+    if err != 0:
+        raise RuntimeError(f"tree_ltdl {entry} kernel launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES[entry] += 1
+
+
+def ltdl_factor_cuda(chains, Mp: torch.Tensor):
+    """Launches the factor kernel: Mp (E, N) -> (H (E, N), D (nv, N))."""
+    _check_cuda("ltdl_factor_cuda", Mp)
+    tt = _kernel_tables("ltdl_factor_cuda", chains)
+    if Mp.ndim != 2 or Mp.shape[0] != tt.E:
+        raise ValueError(f"ltdl_factor_cuda needs Mp ({tt.E}, N), got "
+                         f"{tuple(Mp.shape)}")
+    Mp = Mp.contiguous()
+    N = Mp.shape[1]
+    H = torch.empty_like(Mp)
+    D = Mp.new_empty(tt.nv, N)
+    _launch("factor", Mp.device, tt.device_table(Mp.device).data_ptr(),
+            tt.nv, tt.E, Mp.data_ptr(), H.data_ptr(), D.data_ptr(), N)
+    return H, D
+
+
+def ltdl_substitute_cuda(chains, factor, b: torch.Tensor) -> torch.Tensor:
+    """Launches the substitute kernel: factor (H (E, N), D (nv, N)), b
+    (nv, N) or (K, nv, N) -> x shaped as b."""
+    H, D = factor
+    _check_cuda("ltdl_substitute_cuda", H, D, b)
+    tt = _kernel_tables("ltdl_substitute_cuda", chains)
+    N = H.shape[-1]
+    if H.shape != (tt.E, N) or D.shape != (tt.nv, N):
+        raise ValueError(f"ltdl_substitute_cuda needs H ({tt.E}, N) and D "
+                         f"({tt.nv}, N), got {tuple(H.shape)}, "
+                         f"{tuple(D.shape)}")
+    if b.shape[-2:] != (tt.nv, N) or b.ndim not in (2, 3):
+        raise ValueError(f"ltdl_substitute_cuda needs b (nv, N) or "
+                         f"(K, nv, N) with (nv, N) = {(tt.nv, N)}, got "
+                         f"{tuple(b.shape)}")
+    k = b.shape[0] if b.ndim == 3 else 1
+    if k > _MAX_RHS:
+        raise ValueError(f"ltdl_substitute_cuda takes at most {_MAX_RHS} "
+                         f"right-hand sides, got {k}")
+    H, D, b = H.contiguous(), D.contiguous(), b.contiguous()
+    x = torch.empty_like(b)
+    _launch("substitute", H.device, tt.device_table(H.device).data_ptr(),
+            tt.nv, tt.E, H.data_ptr(), D.data_ptr(), b.data_ptr(),
+            x.data_ptr(), k, N)
+    return x
+
+
+# --------------------------------------------------------------------- #
+# Tensor-form entry points: plain version on the CPU, kernel on the card.
+# --------------------------------------------------------------------- #
+def _on_cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def tree_factor(chains, Mp: torch.Tensor, left_looking: bool = False):
+    """Mp (E, N) -> (H (E, N), D (nv, N)). ``left_looking`` picks the form
+    of the plain version (CPU tensors); the kernel has one form."""
+    if _on_cpu(Mp):
+        return ltdl_factor_plain(chains, Mp, left_looking)
+    return ltdl_factor_cuda(chains, Mp)
+
+
+def tree_substitute(chains, factor, b: torch.Tensor) -> torch.Tensor:
+    """Solves against a ``tree_factor`` result: b (nv, N) or (K, nv, N) ->
+    x shaped as b."""
+    if _on_cpu(*factor, b):
+        return ltdl_substitute_plain(chains, factor, b)
+    return ltdl_substitute_cuda(chains, factor, b)

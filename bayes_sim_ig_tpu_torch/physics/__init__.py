@@ -1,9 +1,10 @@
 """Rigid-body physics in PyTorch: spatial algebra, articulated dynamics
-(CRBA/RNEA + dense SPD solve), ground-plane penalty contacts.
+(CRBA/RNEA + the dense SPD or the branch-sparse tree solve), ground-plane
+penalty contacts.
 
 Port of ``bayes_sim_ig_tpu/physics``: batched functions over env-first
-state with env-last internals (dynamics.py). Not ported yet: the
-branch-sparse tree solve and the pair and impulse contacts.
+state with env-last internals (dynamics.py). Not ported yet: the pair
+and impulse contacts.
 """
 
 from .model import ArticulatedModel, LinkSpec, Geom, DynParams, JOINT_DOF

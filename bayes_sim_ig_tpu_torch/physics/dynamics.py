@@ -22,11 +22,11 @@ layout:
   * joint damping and PD derivative gains are implicit (``dt * d`` on the
     left-hand side);
   * the (M + diag) qdd = rhs solve factors with the column Cholesky of
-    ``ops/spd_kernel.py`` (a CUDA kernel on the card) when the dof tree's
-    ancestor pairs fill more than 0.66 of the lower triangle, as Ant's and
-    Anymal's do. Sparser trees (Humanoid, ShadowHand) take the JAX
-    package's branch-sparse LTDL, which is not ported yet
-    (``ops/tree_solve.py``) and raises here.
+    ``ops/spd_kernel.py`` when the dof tree's ancestor pairs fill more
+    than 0.66 of the lower triangle, as Ant's and Anymal's do, and with
+    the branch-sparse L^T D L of ``ops/tree_solve.py`` over the ancestor
+    pairs alone for sparser trees (Humanoid, ShadowHand). Each is a CUDA
+    kernel on the card.
 
 Everything is a function of (q, v, tau, params), so domain randomization is
 batched parameter tensors. Static tables of a model are built once per
@@ -43,11 +43,18 @@ import torch
 
 from .model import ArticulatedModel, DynParams
 from ..ops.spd_kernel import spd_factor_lanes, spd_substitute_lanes
+from ..ops.tree_solve import (
+    ancestor_pairs, tree_factor, tree_substitute, tree_tables,
+)
 
 # The JAX package picks its branch-sparse LTDL over the dense Cholesky
 # when the dof tree's ancestor pairs fill at most this share of the
 # lower triangle (a crossover measured on its accelerator).
 TREE_SOLVE_MAX_FILL = 0.66
+# ... and the LTDL's left-looking form for the plain version when the mean
+# proper-ancestor chain depth is at least this (Humanoid 8.0, ShadowHand
+# 3.3; fewer, larger ops on deep chains). The kernel has one form.
+TREE_LL_MIN_MEAN_DEPTH = 5.0
 
 
 # --------------------------------------------------------------------- #
@@ -230,6 +237,11 @@ def _structure(model: ArticulatedModel, device) -> dict:
         dof_vd_mask=f32(model.dof_vd_mask),
         crba_mask=f32(model.crba_mask), eye_nv=f32(np.eye(nv)),
     )
+    # The tree solve's CRBA pair build: one gather of F rows and S rows per
+    # ancestor pair (k, i), in ancestor_pairs order, and the diagonal pairs.
+    pairs = np.asarray(ancestor_pairs(model.dof_anc_chains), np.int64)
+    s.update(tree_k=idx(pairs[:, 0]), tree_i=idx(pairs[:, 1]),
+             tree_diag=idx(tree_tables(model.dof_anc_chains).diag))
     cache[device] = s
     return s
 
@@ -604,11 +616,11 @@ def _uses_tree_solve(model: ArticulatedModel) -> bool:
     return n_pairs <= TREE_SOLVE_MAX_FILL * n_tri
 
 
-def _tree_solve_missing():
-    return NotImplementedError(
-        "this model's dof tree is sparse enough for the branch-sparse LTDL "
-        "solve of the JAX package's ops/tree_solve.py, which is not yet "
-        "ported to bayes_sim_ig_tpu_torch")
+def _tree_pair_values(st, F, S, diag_extra):
+    """CRBA values at the ancestor pairs: M[(k, i)] = F_k . S_i, plus
+    ``diag_extra`` on the diagonal pairs, all pairs at once: (E, N)."""
+    Mp = (F[st["tree_k"]] * S[st["tree_i"]]).sum(1)
+    return Mp.index_add(0, st["tree_diag"], diag_extra)
 
 
 def forward_dynamics(model: ArticulatedModel, q, v, tau,
@@ -679,16 +691,23 @@ def forward_dynamics(model: ArticulatedModel, q, v, tau,
         gain = kdT + h_drv * kpT
         rhs = rhs + p_term - gain * vT
         diag_extra = diag_extra + h_drv * gain
+    chains = model.dof_anc_chains
     if factor is None:
+        F = _mass_factors_i10(model, kin, I10)
         if _uses_tree_solve(model):
-            raise _tree_solve_missing()
-        Ml = _crba_matrix(st, _mass_factors_i10(model, kin, I10), kin.S_o)
-        lhs = Ml + st["eye_nv"][:, :, None] * diag_extra[None, :, :]
-        factor = ("dense", spd_factor_lanes(lhs))
+            left_looking = (tree_tables(chains).mean_depth
+                            >= TREE_LL_MIN_MEAN_DEPTH)
+            Mp = _tree_pair_values(st, F, kin.S_o, diag_extra)
+            factor = ("tree", tree_factor(chains, Mp, left_looking))
+        else:
+            Ml = _crba_matrix(st, F, kin.S_o)
+            lhs = Ml + st["eye_nv"][:, :, None] * diag_extra[None, :, :]
+            factor = ("dense", spd_factor_lanes(lhs))
     kind, payload = factor
-    if kind != "dense":
-        raise _tree_solve_missing()
-    qdd = spd_substitute_lanes(payload, rhs).T
+    if kind == "tree":
+        qdd = tree_substitute(chains, payload, rhs).T
+    else:
+        qdd = spd_substitute_lanes(payload, rhs).T
     if return_factor:
         return qdd, kin, factor
     return qdd, kin
@@ -697,10 +716,11 @@ def forward_dynamics(model: ArticulatedModel, q, v, tau,
 def mass_factor_solve(model: ArticulatedModel, factor, rhs):
     """Solves (M + diag_extra) X = rhs against a ``forward_dynamics``
     factor (``return_factor=True``) for K extra right-hand sides in lanes
-    layout: rhs (K, nv, N) -> X (K, nv, N), in float32."""
+    layout: rhs (K, nv, N) -> X (K, nv, N), in float32. Works for both
+    factor kinds."""
     kind, payload = factor
-    if kind != "dense":
-        raise _tree_solve_missing()
+    if kind == "tree":
+        return tree_substitute(model.dof_anc_chains, payload, rhs.float())
     return spd_substitute_lanes(payload, rhs.float())
 
 

@@ -6,16 +6,19 @@ from .task import (
 )
 from .ant import Ant
 from .cartpole import Cartpole
+from .humanoid import Humanoid
+from .pendulum import Pendulum
 
 _TASK_REGISTRY = {
     "Ant": Ant,
     "Cartpole": Cartpole,
+    "Humanoid": Humanoid,
+    "Pendulum": Pendulum,
 }
 
 # Tasks of the JAX package that this package does not have yet.
-NOT_YET_PORTED = ("Anymal", "BallBalance", "FrankaCabinet",
-                  "Humanoid", "Ingenuity", "Pendulum", "Quadcopter",
-                  "ShadowHand")
+NOT_YET_PORTED = ("Anymal", "BallBalance", "FrankaCabinet", "Ingenuity",
+                  "Quadcopter", "ShadowHand")
 
 
 def register_task(name, cls):
@@ -40,5 +43,6 @@ def make_env(task_name: str, cfg: dict, seed: int = 0,
 
 
 __all__ = ["Task", "EnvState", "VecEnv", "env_step", "env_full_reset",
-           "Ant", "Cartpole", "make_env", "register_task", "available_tasks",
+           "Ant", "Cartpole", "Humanoid", "Pendulum", "make_env",
+           "register_task", "available_tasks",
            "NOT_YET_PORTED", "CLIP_OBSERVATIONS", "CLIP_ACTIONS"]

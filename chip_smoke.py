@@ -18,6 +18,16 @@ Phases (each prints its lines; any failure raises and exits non-zero):
        solve's autograd backward (csrc/spd_lanes.cu) at (n, N) = (14,
        1024) (Ant), (14, 1), (14, 4096), (30, 1024) and (5, 17), and the
        NaN-pivot policy (one indefinite system: NaN in its env only);
+     - the tree L^T D L factor and substitute (csrc/tree_ltdl.cu) on
+       Humanoid's dof tree at N = 4096, 1 and 17, Ant's (nearly dense) at
+       1024 and a random 30-dof tree (numpy, seed 0) at 1024: the factor
+       against the right-looking plain factor, the substitute at K = 1 and
+       K = 4, factor + substitute against the plain dense Cholesky solve
+       of the same M, and the NaN-pivot policy (one indefinite env: NaN in
+       its env only, every other env bit for bit the clean run); at
+       (Humanoid, 4096) the times of both kernels against the path's
+       plain (left-looking) version, and the tree-vs-dense A/B: the two
+       tree kernels against the two SPD kernels on the same M made dense;
   4. the ADR loop on Ant at full width (1024 envs, 17 params,
      trainTrajLen 50, summary_corrdiff, MDNN [128, 128] x 10 components,
      PPO [256, 128, 64] with nsteps 16) for 2 ADR iterations through
@@ -28,7 +38,14 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   5. the ADR loop on Cartpole + MDRFF at full width (512 envs,
      summary_corrdiff features d = 302, 200 RFF features, 10 components
      over 13 params) for 2 ADR iterations; checks that rff_features was
-     launched, and the same as phase 4.
+     launched, and the same as phase 4;
+  6. the ADR loop on Humanoid at full width (4096 envs, 37 params,
+     trainTrajLen 50, summary_corrdiff, MDNN [128, 128] x 10 components,
+     PPO [400, 200, 100] elu with nsteps 32) for 2 ADR iterations; checks
+     that both tree kernels were launched and the dense SPD kernels were
+     not, and the same as phase 4;
+  7. the README quick start, Pendulum + MDNN with summary_start at full
+     width (100 envs), for 2 ADR iterations; it launches no kernel.
 Each ADR phase sets every kernel's launch count to 0 just before it runs
 and reads the counts just after. The line before the card's line is a
 JSON object with each kernel's numbers; the last line is
@@ -81,6 +98,17 @@ SPD_SHAPES = [(14, 1024), (14, 1), (14, 4096), (30, 1024), (5, 17)]
 SPD_TIMED = (14, 1024)
 SPD_RHS = 4  # K for the multi-right-hand-side substitute
 
+# The tree kernels against their plain versions: float32 with the same
+# order of operations up to fused multiply-adds, on CRBA-like systems
+# (A = B B^T + nv I kept at the ancestor pairs, made diagonally dominant).
+TREE_RTOL, TREE_ATOL = 1e-4, 1e-5
+# (tree, N): Humanoid's at its full width, one env and a ragged count,
+# Ant's nearly dense tree at its width, and a random 30-dof tree.
+TREE_SHAPES = [("humanoid", 4096), ("humanoid", 1), ("humanoid", 17),
+               ("ant", 1024), ("random30", 1024)]
+TREE_TIMED = ("humanoid", 4096)
+TREE_RHS = 4
+
 
 def phase_device():
     if not torch.cuda.is_available():
@@ -102,9 +130,12 @@ def phase_device():
 
 
 def phase_build():
-    from bayes_sim_ig_tpu_torch.ops import build, rff_kernel, spd_kernel
+    from bayes_sim_ig_tpu_torch.ops import (
+        build, rff_kernel, spd_kernel, tree_solve,
+    )
     loaders = {"rff_features": rff_kernel._kernel_fn,
-               "spd_lanes": spd_kernel._kernel_fns}
+               "spd_lanes": spd_kernel._kernel_fns,
+               "tree_ltdl": tree_solve._kernel_fns}
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
         futures = {name: pool.submit(fn) for name, fn in loaders.items()}
@@ -119,7 +150,7 @@ def phase_build():
         print(f"[build] {name}: "
               f"{'compiled in %.2f s' % log['seconds'] if log else 'cached'}"
               f"; {ptxas}", flush=True)
-    print(f"[build] both libraries built and loaded in {secs:.2f} s",
+    print(f"[build] {len(loaders)} libraries built and loaded in {secs:.2f} s",
           flush=True)
 
 
@@ -358,6 +389,148 @@ def phase_spd_kernel():
             for entry in ("factor", "substitute", "solve")}
 
 
+def _random_chains(nv, seed):
+    """A random dof tree in topological order: each dof's parent is an
+    earlier dof, or a root with probability 0.1."""
+    rs = np.random.RandomState(seed)
+    chains = [[]]
+    for k in range(1, nv):
+        p = -1 if rs.rand() < 0.1 else int(rs.randint(k))
+        chains.append([] if p < 0 else [p] + chains[p])
+    return chains
+
+
+def _tree_chains(tree):
+    from bayes_sim_ig_tpu_torch.sim.ant import build_ant_model
+    from bayes_sim_ig_tpu_torch.sim.humanoid import build_humanoid_model
+    if tree == "humanoid":
+        return build_humanoid_model().dof_anc_chains
+    if tree == "ant":
+        return build_ant_model().dof_anc_chains
+    return _random_chains(30, 0)
+
+
+def _tree_inputs(chains, N, seed=0):
+    """Pair values Mp (E, N), the same systems dense At (nv, nv, N), and
+    right-hand sides (nv, N) and (TREE_RHS, nv, N), on the card."""
+    from bayes_sim_ig_tpu_torch.ops.tree_solve import ancestor_pairs
+    rs = np.random.RandomState(seed)
+    nv = len(chains)
+    B = rs.randn(N, nv, nv)
+    A = B @ B.transpose(0, 2, 1) + nv * np.eye(nv)
+    keep = np.eye(nv, dtype=bool)
+    for c, ch in enumerate(chains):
+        keep[c, ch] = keep[ch, c] = True
+    A = np.where(keep, A, 0.0)
+    A[:, np.arange(nv), np.arange(nv)] += np.abs(A).sum(-1)
+    pairs = ancestor_pairs(chains)
+    dev = torch.device("cuda:0")
+
+    def f32(x):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32,
+                               device=dev)
+    Mp = f32(np.stack([A[:, k, i] for k, i in pairs]))
+    return (Mp, f32(A.transpose(1, 2, 0)), f32(rs.randn(nv, N)),
+            f32(rs.randn(TREE_RHS, nv, N)))
+
+
+def _tree_check(name, got, want, shape):
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ok = (bool(torch.isfinite(got).all())
+          and torch.allclose(got, want, rtol=TREE_RTOL, atol=TREE_ATOL))
+    print(f"[kernel] {name} {shape}: max_abs_err {err:.3e} (rtol "
+          f"{TREE_RTOL}, atol {TREE_ATOL}) {'ok' if ok else 'MISMATCH'}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version at "
+                             f"{shape}")
+    return err
+
+
+def phase_tree_kernel():
+    from bayes_sim_ig_tpu_torch.ops import spd_kernel as sk
+    from bayes_sim_ig_tpu_torch.ops import tree_solve as ts
+    worst = collections.defaultdict(float)
+    timed = {}
+    for tree, N in TREE_SHAPES:
+        chains = _tree_chains(tree)
+        shape = f"({tree}: nv {len(chains)}, E {ts.tree_tables(chains).E}, " \
+                f"N {N})"
+        Mp, At, b, bk = _tree_inputs(chains, N)
+        H, D = ts.ltdl_factor_cuda(chains, Mp)
+        Hp, Dp = ts.ltdl_factor_plain(chains, Mp)
+        worst["factor"] = max(worst["factor"],
+                              _tree_check("tree_ltdl_factor H", H, Hp, shape),
+                              _tree_check("tree_ltdl_factor D", D, Dp, shape))
+        for rhs, what in ((b, "K=1"), (bk, f"K={TREE_RHS}")):
+            worst["substitute"] = max(worst["substitute"], _tree_check(
+                f"tree_ltdl_substitute {what}",
+                ts.ltdl_substitute_cuda(chains, (Hp, Dp), rhs),
+                ts.ltdl_substitute_plain(chains, (Hp, Dp), rhs), shape))
+        x = ts.ltdl_substitute_cuda(chains, (H, D), b)
+        worst["solve"] = max(worst["solve"], _tree_check(
+            "tree_ltdl factor+substitute vs the dense Cholesky solve", x,
+            sk._chol_lanes_core(At, b), shape))
+        if (tree, N) == TREE_TIMED:
+            timed["factor"] = _times(
+                lambda: ts.ltdl_factor_cuda(chains, Mp),
+                lambda: ts.ltdl_factor_plain(chains, Mp, True))
+            timed["substitute"] = _times(
+                lambda: ts.ltdl_substitute_cuda(chains, (H, D), b),
+                lambda: ts.ltdl_substitute_plain(chains, (H, D), b))
+            for entry in ("factor", "substitute"):
+                print(f"[kernel] tree_ltdl_{entry} {shape} (plain: the "
+                      f"path's left-looking form): "
+                      f"{_time_line(timed[entry])}", flush=True)
+            # The H100 A/B behind the 0.66 pick: both tree kernels against
+            # both dense SPD kernels on the same systems.
+
+            def tree_pair_solve():
+                return ts.ltdl_substitute_cuda(
+                    chains, ts.ltdl_factor_cuda(chains, Mp), b)
+
+            def dense_solve():
+                return sk.spd_substitute_lanes_cuda(
+                    sk.spd_factor_lanes_cuda(At), b)
+            torch.cuda.synchronize()
+            _tree_check("tree vs dense SPD kernels", tree_pair_solve(),
+                        dense_solve(), shape)
+            timed["ab"] = _times(tree_pair_solve, dense_solve)
+            t = timed["ab"]
+            print(f"[kernel] tree vs dense A/B {shape}, factor + substitute:"
+                  f" tree {t['ms']:.4f} ms, dense {t['plain_ms']:.4f} ms per"
+                  f" call (median of 50, CUDA events); device time per call "
+                  f"tree {_fmt(t['dev_ms'])}, dense {_fmt(t['plain_dev_ms'])}",
+                  flush=True)
+    # NaN policy: env 5 negated (every pivot negative) is NaN in D and x
+    # only in its own column; every other env bit for bit the clean run.
+    chains = _tree_chains(TREE_TIMED[0])
+    N = TREE_TIMED[1]
+    Mp, _, b, _ = _tree_inputs(chains, N)
+    H, D = ts.ltdl_factor_cuda(chains, Mp)
+    clean = ts.ltdl_substitute_cuda(chains, (H, D), b)
+    bad = Mp.clone()
+    bad[:, 5] = -bad[:, 5]
+    Hb, Db = ts.ltdl_factor_cuda(chains, bad)
+    x = ts.ltdl_substitute_cuda(chains, (Hb, Db), b)
+    Dp = ts.ltdl_factor_plain(chains, bad)[1]
+    torch.cuda.synchronize()
+    others = torch.ones(N, dtype=torch.bool, device=Mp.device)
+    others[5] = False
+    ok = (bool(torch.isnan(Db[:, 5]).all()) and bool(torch.isnan(
+        x[:, 5]).all()) and torch.equal(torch.isnan(Db), torch.isnan(Dp))
+        and torch.equal(x[:, others], clean[:, others])
+        and torch.equal(Db[:, others], D[:, others]))
+    print(f"[kernel] tree NaN policy (Humanoid, N {N}): indefinite env 5 -> "
+          f"NaN in its D and x only, NaN positions as the plain version's, "
+          f"other envs bit-equal: {'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        raise AssertionError("the tree kernels break the NaN-pivot policy")
+    return {entry: {"max_abs_err": worst[entry], **timed[entry]}
+            for entry in ("factor", "substitute")}
+
+
 def _on_cuda(tensors, what):
     bad = [tuple(t.shape) for t in tensors if t.device.type != "cuda"]
     if bad:
@@ -365,16 +538,18 @@ def _on_cuda(tensors, what):
 
 
 def _reset_launches():
-    from bayes_sim_ig_tpu_torch.ops import rff_kernel, spd_kernel
+    from bayes_sim_ig_tpu_torch.ops import rff_kernel, spd_kernel, tree_solve
     rff_kernel.LAUNCHES = 0
-    for entry in spd_kernel.LAUNCHES:
-        spd_kernel.LAUNCHES[entry] = 0
+    for counts in (spd_kernel.LAUNCHES, tree_solve.LAUNCHES):
+        for entry in counts:
+            counts[entry] = 0
 
 
 def _read_launches():
-    from bayes_sim_ig_tpu_torch.ops import rff_kernel, spd_kernel
+    from bayes_sim_ig_tpu_torch.ops import rff_kernel, spd_kernel, tree_solve
     return {"rff_features": rff_kernel.LAUNCHES,
-            **{f"spd_{e}_lanes": c for e, c in spd_kernel.LAUNCHES.items()}}
+            **{f"spd_{e}_lanes": c for e, c in spd_kernel.LAUNCHES.items()},
+            **{f"tree_ltdl_{e}": c for e, c in tree_solve.LAUNCHES.items()}}
 
 
 class _PhaseTimer:
@@ -514,13 +689,83 @@ def phase_adr_cartpole():
     return launches
 
 
+def phase_adr_humanoid():
+    """Humanoid at full width (cfg/humanoid.yaml: 4096 envs, 37 params,
+    trainTrajLen 50, summary_corrdiff, MDNN [128, 128] x 10 components;
+    cfg/train/ppo_humanoid.yaml: PPO [400, 200, 100] elu, nsteps 32), cut
+    in depth only: trainTrajs 4096 (of 10000), realIters 2 (of 100), and
+    5 PPO iterations per ADR iteration."""
+    from bayes_sim_ig_tpu_torch.utils.args import load_config
+    cfg = load_config(os.path.join(HERE, "bayes_sim_ig_tpu_torch", "cfg",
+                                   "humanoid.yaml"))
+    cfg["bayessim"].update(trainTrajs=4096, realIters=2)
+    bs = cfg["bayessim"]
+    assert cfg["env"]["numEnvs"] == 4096 and bs["trainTrajLen"] == 50
+    assert bs["modelClass"] == "MDNN" and bs["components"] == 10
+    assert bs["hiddenLayers"] == [128, 128]
+    assert bs["summarizerFxn"] == "summary_corrdiff"
+    out, launches, secs, timer = _run_adr("Humanoid", cfg, "humanoid")
+    for entry in ("tree_ltdl_factor", "tree_ltdl_substitute"):
+        if launches[entry] <= 0:
+            raise AssertionError(f"the Humanoid ADR loop never launched "
+                                 f"{entry}")
+    for entry in ("spd_factor_lanes", "spd_substitute_lanes"):
+        if launches[entry] != 0:
+            raise AssertionError(f"the Humanoid ADR loop launched the dense "
+                                 f"{entry}")
+    net = out["bsim"].model.net
+    assert type(out["bsim"].model).__name__ == "MDNN"
+    assert [l.out_features for l in net.trunk] == [128, 128]
+    assert net.mu.out_features == 37 * 10
+    ppo = out["ppo"]
+    assert [l.out_features for l in ppo.net.actor][:3] == [400, 200, 100]
+    assert ppo.nsteps == 32 and ppo.activation == "elu"
+    assert out["env"].num_envs == 4096
+    print(f"[adr] Humanoid 4096 envs, 2 ADR iterations in {secs:.2f} s (per "
+          f"iteration: {', '.join(f'{s:.2f}' for s in out['iter_secs'])} s;"
+          f" phases: {timer.line()}); launches {launches}; 37-dim "
+          f"posteriors finite; model, refit, policy and env tensors on cuda",
+          flush=True)
+    return launches
+
+
+def phase_adr_pendulum():
+    """The README quick start at full width (cfg/pendulum.yaml: 100 envs,
+    MDNN [128, 128] x 10 components, summary_start, policy_random;
+    cfg/train/ppo_pendulum.yaml), cut in depth only: realIters 2 (of 20)
+    and 5 PPO iterations per ADR iteration."""
+    from bayes_sim_ig_tpu_torch.utils.args import load_config
+    cfg = load_config(os.path.join(HERE, "bayes_sim_ig_tpu_torch", "cfg",
+                                   "pendulum.yaml"))
+    cfg["bayessim"].update(realIters=2)
+    bs = cfg["bayessim"]
+    assert cfg["env"]["numEnvs"] == 100 and bs["modelClass"] == "MDNN"
+    assert bs["summarizerFxn"] == "summary_start"
+    assert bs["trainTrajs"] == 10000
+    out, launches, secs, timer = _run_adr("Pendulum", cfg, "pendulum")
+    if any(launches.values()):
+        raise AssertionError(f"the Pendulum path launched a kernel: "
+                             f"{launches}")
+    assert type(out["bsim"].model).__name__ == "MDNN"
+    assert out["env"].num_envs == 100
+    print(f"[adr] Pendulum (quick start) 100 envs, 2 ADR iterations in "
+          f"{secs:.2f} s (per iteration: "
+          f"{', '.join(f'{s:.2f}' for s in out['iter_secs'])} s; phases: "
+          f"{timer.line()}); launches no kernel (all counts 0); 2-dim "
+          f"posteriors finite; model, refit, policy and env tensors on cuda",
+          flush=True)
+
+
 def main():
     smi = phase_device()
     phase_build()
     rff = phase_rff_kernel()
     spd = phase_spd_kernel()
+    tree = phase_tree_kernel()
     ant = phase_adr_ant()
     cartpole = phase_adr_cartpole()
+    humanoid = phase_adr_humanoid()
+    phase_adr_pendulum()
     spd_src = "bayes_sim_ig_tpu_torch/csrc/spd_lanes.cu"
     spd_tpu = "bayes_sim_ig_tpu/ops/spd_kernel.py:143"
     kernels = [{
@@ -537,6 +782,18 @@ def main():
             "launches": ant[f"spd_{entry}_lanes"],
             "max_abs_err": spd[entry]["max_abs_err"],
             "ms": spd[entry]["ms"], "plain_ms": spd[entry]["plain_ms"]})
+    # The factor kernel replaces both forms of the JAX factor (:50, :76);
+    # Humanoid's path there takes the left-looking one.
+    tree_src = "bayes_sim_ig_tpu_torch/csrc/tree_ltdl.cu"
+    for entry, replaces in (
+            ("factor", "bayes_sim_ig_tpu/ops/tree_solve.py:76"),
+            ("substitute", "bayes_sim_ig_tpu/ops/tree_solve.py:127")):
+        kernels.append({
+            "name": f"tree_ltdl_{entry}", "route": "cuda",
+            "source": tree_src, "replaces": replaces,
+            "launches": humanoid[f"tree_ltdl_{entry}"],
+            "max_abs_err": tree[entry]["max_abs_err"],
+            "ms": tree[entry]["ms"], "plain_ms": tree[entry]["plain_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -173,4 +173,4 @@ def test_port_imports_no_jax():
 def test_unported_task_is_refused_by_the_cli():
     from bayes_sim_ig_tpu_torch.utils.args import init_args
     with pytest.raises(SystemExit, match="not yet ported"):
-        init_args(["--task", "Pendulum", "--rl_device", "cpu"])
+        init_args(["--task", "ShadowHand", "--rl_device", "cpu"])

@@ -5,8 +5,8 @@ spatial algebra, forward kinematics, the packed inertias, RNEA bias, the
 CRBA mass matrix, forward dynamics fresh and with a carried factor, ground
 contacts, integration and joint limits. Then the oracles of
 tests/test_physics.py that this slice reaches (mass matrix symmetric PD,
-free fall, frozen vs fresh substeps), and the refusal of a dof tree that
-needs the not-yet-ported tree solve.
+free fall, frozen vs fresh substeps), and a sparse dof tree that takes
+the branch-sparse tree solve.
 
 The JAX functions run eagerly (op by op), which on the CPU costs far less
 than compiling the whole Ant step. Tolerances: float32 on both sides with
@@ -329,18 +329,30 @@ def test_frozen_vs_fresh_single_step(monkeypatch):
 
 def test_sparse_dof_tree_needs_the_unported_tree_solve():
     """A fixed base with six independent single-dof arms fills 6 of the
-    21 lower-triangle pairs, below the 0.66 dense threshold: the JAX
-    package would take its branch-sparse LTDL, which the port refuses."""
-    star = ArticulatedModel(
-        [LinkSpec("base", parent=-1, joint_type="fixed")]
-        + [LinkSpec(f"arm{i}", parent=0, joint_type="revolute",
-                    joint_axis=(0, 1, 0), com=(0, 0, -0.3))
-           for i in range(6)],
-        geoms=[Geom(link=1, kind="sphere", size=(0.1,))])
-    params = DynParams.defaults(star)
-    with pytest.raises(NotImplementedError, match="tree_solve"):
-        forward_dynamics(star, torch.zeros(6), torch.zeros(6),
-                         torch.zeros(6), params)
+    21 lower-triangle pairs, below the 0.66 dense threshold: the port
+    takes the branch-sparse LTDL, as the JAX package does, and solves as
+    it does."""
+    import bayes_sim_ig_tpu.physics as jphys
+    import bayes_sim_ig_tpu_torch.physics as tphys
+
+    def star(P):
+        return P.ArticulatedModel(
+            [P.LinkSpec("base", parent=-1, joint_type="fixed")]
+            + [P.LinkSpec(f"arm{i}", parent=0, joint_type="revolute",
+                          joint_axis=(0, 1, 0), com=(0, 0, -0.3))
+               for i in range(6)],
+            geoms=[P.Geom(link=1, kind="sphere", size=(0.1,))])
+    jm, tm = star(jphys), star(tphys)
+    assert tdyn._uses_tree_solve(tm)
+    rs = np.random.RandomState(10)
+    q, v, tau = rs.uniform(-1.0, 1.0, (3, 6)).astype(np.float32)
+    qdd, _, factor = forward_dynamics(
+        tm, _t(q), _t(v), _t(tau), DynParams.defaults(tm),
+        return_factor=True)
+    assert factor[0] == "tree"
+    want, _ = jdyn.forward_dynamics(jm, _j(q), _j(v), _j(tau),
+                                    jphys.DynParams.defaults(jm))
+    _close(qdd, want, FORCE)
 
 
 def test_mass_factor_solve_k_rhs_matches_jax():

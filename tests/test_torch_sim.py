@@ -185,7 +185,7 @@ def test_device_mog_cholesky_layout_matches_jax():
 
 def test_make_env_refuses_tasks_not_yet_ported():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        make_env("Pendulum", _cfg())
+        make_env("ShadowHand", _cfg())
 
 
 def test_postprocess_round_matches_jax():
