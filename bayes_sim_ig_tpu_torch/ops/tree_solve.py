@@ -46,6 +46,13 @@ LAUNCHES = {"factor": 0, "substitute": 0}
 MAX_NV = 256
 MAX_PAIRS = 1024
 _MAX_RHS = 65535
+# Lanes an env takes in the kernels (csrc/tree_ltdl.cu G: a half warp, two
+# envs a warp), and the flags of a factor round's head: its height's last
+# and first round (csrc LAST, FIRST).
+GROUP = 16
+_LAST_ROUND = 1 << 16
+_FIRST_ROUND = 1 << 17
+_BATCH = 8  # terms the factor kernel loads at once (csrc BATCH)
 
 _FNS = None
 _TABLES: dict = {}
@@ -76,6 +83,7 @@ class TreeTables:
         self.index = {p: n for n, p in enumerate(self.pairs)}
         self.parent = [c[0] if c else -1 for c in self.chains]
         self.off = [self.index[(k, k)] for k in range(nv)] + [self.E]
+        self.anc = [i for _, i in self.pairs]  # pair p = (k, anc[p])
         self.diag = self.off[:nv]
         self.mean_depth = sum(len(c) for c in self.chains) / max(nv, 1)
         # contributors[k] = [(c, t)] with k == chains[c][t] (the
@@ -85,6 +93,11 @@ class TreeTables:
         for c in range(nv):
             for t, k in enumerate(self.chains[c]):
                 self.contributors[k].append((c, t))
+        # height[k]: the longest path from k down to a leaf.
+        self.height = [0] * nv
+        for c in range(nv - 1, -1, -1):
+            for t, k in enumerate(self.chains[c]):
+                self.height[k] = max(self.height[k], self.height[c] + 1 + t)
         # The layout the kernel walks: every parent precedes its child, and
         # every chain is its parent's chain behind the parent.
         self.tree_ordered = all(
@@ -92,16 +105,94 @@ class TreeTables:
             for k, (p, ch) in enumerate(zip(self.parent, self.chains)))
         self._device: dict = {}
 
-    def device_table(self, device) -> torch.Tensor:
-        """int32 [parent (nv), off (nv + 1)] on ``device``, the kernel's
-        table; copied once per device."""
+    def device_table(self, device):
+        """The kernels' int32 table on ``device`` and its round counts:
+        (table, Rd, Rf), built and copied once per device
+        (``kernel_table``)."""
         device = torch.device(device)
-        t = self._device.get(device)
-        if t is None:
-            t = torch.as_tensor(np.asarray(self.parent + self.off, np.int32),
-                                device=device)
-            self._device[device] = t
-        return t
+        entry = self._device.get(device)
+        if entry is None:
+            table, *counts = kernel_table(self)
+            entry = (torch.as_tensor(table, device=device), *counts)
+            self._device[device] = entry
+        return entry
+
+
+def _rounds(items: List[int]) -> List[List[int]]:
+    """``items`` in rounds of ``GROUP`` lanes, -1 for an idle lane."""
+    return [items[c:c + GROUP] + [-1] * (GROUP - len(items[c:c + GROUP]))
+            for c in range(0, len(items), GROUP)]
+
+
+def _by(level: Sequence[int]) -> List[List[int]]:
+    """Dofs grouped by ``level[k]``, lowest level first."""
+    groups: Dict[int, List[int]] = {}
+    for k, lv in enumerate(level):
+        groups.setdefault(lv, []).append(k)
+    return [groups[lv] for lv in sorted(groups)]
+
+
+def contributions(tt: TreeTables):
+    """Each dof i's contributions in the right-looking order: for every
+    descendant c of i, in descending c, the pair row of (c, i), padded to
+    a multiple of ``_BATCH`` with the row E (the factor kernel's zero
+    term). Returns (begin (nv + 1), entries): dof i's run is
+    entries[begin[i]:begin[i + 1]]."""
+    begin, entries = [0], []
+    for i in range(tt.nv):
+        rows = [tt.off[c] + 1 + t for c, t in reversed(tt.contributors[i])]
+        entries += rows + [tt.E] * (-len(rows) % _BATCH)
+        begin.append(len(entries))
+    return np.asarray(begin, np.int32), np.asarray(entries, np.int32)
+
+
+def factor_rounds(tt: TreeTables):
+    """The factor kernel's schedule. The right-looking elimination gives
+    pair (i, chains[i][q - 1]) (q = 0: (i, i)) its final value
+
+        h[(i, j)] = M[(i, j)] - sum_c a_c[t] h_c[t + q],
+
+    over the descendants c of i in descending c (``contributions``), t the
+    place of i in chains[c], a_c = c's pairs / c's pivot: every term is
+    final once c's subtree is, so the pairs of all dofs of one height (the
+    longest path down to a leaf) are independent tasks. Tasks i | q << 8
+    go height by height, ``GROUP`` lanes a round. Returns head (R,): the
+    flags ``_FIRST_ROUND`` and ``_LAST_ROUND`` of a height's first and
+    last round, and slot (R, GROUP): the tasks, -1 for an idle lane."""
+    head, slot = [], []
+    for dofs in _by(tt.height):
+        rounds = _rounds([i | q << 8 for i in dofs
+                          for q in range(len(tt.chains[i]) + 1)])
+        for n, lanes in enumerate(rounds):
+            head.append((_FIRST_ROUND if n == 0 else 0)
+                        | (_LAST_ROUND if n == len(rounds) - 1 else 0))
+            slot.append(lanes)
+    return (np.asarray(head, np.int32),
+            np.asarray(slot, np.int32).reshape(-1, GROUP))
+
+
+def back_rounds(tt: TreeTables) -> np.ndarray:
+    """The substitute's back pass (x = L^-1 z): x_k = z_k - sum_t
+    H[(k, chains[k][t])] x_chains[k][t], so dofs of one depth are
+    independent. Dofs by depth from the root, ``GROUP`` lanes a round;
+    (R, GROUP)."""
+    return np.asarray([r for dofs in _by([len(c) for c in tt.chains])
+                       for r in _rounds(dofs)],
+                      np.int32).reshape(-1, GROUP)
+
+
+def kernel_table(tt: TreeTables):
+    """The int32 table of csrc/tree_ltdl.cu: off (nv + 1) | anc (E) |
+    back rounds (Rd x GROUP) | factor heads (Rf) | factor slots (Rf x
+    GROUP) | contribution begins (nv + 1) | contributions. Returns (table,
+    Rd, Rf)."""
+    begin, entries = contributions(tt)
+    down = back_rounds(tt)
+    head, slot = factor_rounds(tt)
+    table = np.concatenate([np.asarray(tt.off, np.int32),
+                            np.asarray(tt.anc, np.int32), down.ravel(), head,
+                            slot.ravel(), begin, entries])
+    return table.astype(np.int32), len(down), len(head)
 
 
 def tree_tables(chains: Sequence[Sequence[int]]) -> TreeTables:
@@ -291,10 +382,11 @@ def _kernel_fns():
         from .build import load_library
         lib = load_library("tree_ltdl", ["tree_ltdl.cu"])
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.tree_ltdl_factor_f32.argtypes = [ptr, i32, i32, ptr, ptr, ptr,
-                                             i32, ptr]
-        lib.tree_ltdl_substitute_f32.argtypes = [ptr, i32, i32, ptr, ptr,
-                                                 ptr, ptr, i32, i32, ptr]
+        lib.tree_ltdl_factor_f32.argtypes = [ptr, i32, i32, i32, i32, i32,
+                                             ptr, ptr, ptr, i32, ptr]
+        lib.tree_ltdl_substitute_f32.argtypes = [ptr, i32, i32, i32, i32,
+                                                 i32, ptr, ptr, ptr, ptr,
+                                                 i32, i32, ptr]
         for fn in (lib.tree_ltdl_factor_f32, lib.tree_ltdl_substitute_f32):
             fn.restype = ctypes.c_int
         _FNS = {"factor": lib.tree_ltdl_factor_f32,
@@ -336,6 +428,11 @@ def _launch(entry, dev, *args):
     LAUNCHES[entry] += 1
 
 
+def _table_args(tt: TreeTables, device):
+    table, rd, rf = tt.device_table(device)
+    return table.data_ptr(), table.numel(), tt.nv, tt.E, rd, rf
+
+
 def ltdl_factor_cuda(chains, Mp: torch.Tensor):
     """Launches the factor kernel: Mp (E, N) -> (H (E, N), D (nv, N))."""
     _check_cuda("ltdl_factor_cuda", Mp)
@@ -347,8 +444,8 @@ def ltdl_factor_cuda(chains, Mp: torch.Tensor):
     N = Mp.shape[1]
     H = torch.empty_like(Mp)
     D = Mp.new_empty(tt.nv, N)
-    _launch("factor", Mp.device, tt.device_table(Mp.device).data_ptr(),
-            tt.nv, tt.E, Mp.data_ptr(), H.data_ptr(), D.data_ptr(), N)
+    _launch("factor", Mp.device, *_table_args(tt, Mp.device),
+            Mp.data_ptr(), H.data_ptr(), D.data_ptr(), N)
     return H, D
 
 
@@ -373,9 +470,8 @@ def ltdl_substitute_cuda(chains, factor, b: torch.Tensor) -> torch.Tensor:
                          f"right-hand sides, got {k}")
     H, D, b = H.contiguous(), D.contiguous(), b.contiguous()
     x = torch.empty_like(b)
-    _launch("substitute", H.device, tt.device_table(H.device).data_ptr(),
-            tt.nv, tt.E, H.data_ptr(), D.data_ptr(), b.data_ptr(),
-            x.data_ptr(), k, N)
+    _launch("substitute", H.device, *_table_args(tt, H.device),
+            H.data_ptr(), D.data_ptr(), b.data_ptr(), x.data_ptr(), k, N)
     return x
 
 

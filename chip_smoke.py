@@ -16,18 +16,29 @@ Phases (each prints its lines; any failure raises and exits non-zero):
        float64 under a d 2^-23 sum|x coeff| bound;
      - the SPD factor, substitute (K = 1 and K = 4), fused solve and the
        solve's autograd backward (csrc/spd_lanes.cu) at (n, N) = (14,
-       1024) (Ant), (14, 1), (14, 4096), (30, 1024) and (5, 17), and the
-       NaN-pivot policy (one indefinite system: NaN in its env only);
+       1024) (Ant), (14, 1), (14, 4096), (30, 1024) and (5, 17), and at
+       odd n and env counts the lane groups must mask (1, 9), (13, 1027),
+       (16, 1029), (17, 9) and (32, 1027); the NaN-pivot policy (one
+       indefinite system: NaN in its env only, every other env bit for bit
+       the clean run, factor, substitute and fused solve); at (14, 1024)
+       the library yardsticks, each one PyTorch call on the same systems
+       env-first and contiguous (the permute excluded): cholesky_ex for
+       the factor, cholesky_solve for the substitute, linalg.solve for the
+       fused solve;
      - the tree L^T D L factor and substitute (csrc/tree_ltdl.cu) on
        Humanoid's dof tree at N = 4096, 1 and 17, Ant's (nearly dense) at
        1024 and a random 30-dof tree (numpy, seed 0) at 1024: the factor
        against the right-looking plain factor, the substitute at K = 1 and
        K = 4, factor + substitute against the plain dense Cholesky solve
        of the same M, and the NaN-pivot policy (one indefinite env: NaN in
-       its env only, every other env bit for bit the clean run); at
-       (Humanoid, 4096) the times of both kernels against the path's
-       plain (left-looking) version, and the tree-vs-dense A/B: the two
-       tree kernels against the two SPD kernels on the same M made dense;
+       its env only, every other env bit for bit the clean run), also at
+       Ant's tree at 1025 envs, the random tree at 1027 and a 40-deep
+       chain (chains longer than the 16 lanes of an env) at 1027; at
+       (Humanoid, 4096) the times of both kernels against the path's plain
+       (left-looking) version, the dense yardstick of the pair (cholesky_ex + cholesky_solve on the same systems made dense,
+       env-first), and at Humanoid's and Ant's trees the tree-vs-dense
+       A/B: the two tree kernels against the two SPD kernels on the same
+       M made dense;
   4. the ADR loop on Ant at full width (1024 envs, 17 params,
      trainTrajLen 50, summary_corrdiff, MDNN [128, 128] x 10 components,
      PPO [256, 128, 64] with nsteps 16) for 2 ADR iterations through
@@ -48,7 +59,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      width (100 envs), for 2 ADR iterations; it launches no kernel.
 Each ADR phase sets every kernel's launch count to 0 just before it runs
 and reads the counts just after. The line before the card's line is a
-JSON object with each kernel's numbers; the last line is
+JSON object with each kernel's numbers, its bound (ops/bounds.py: the
+larger of its bytes over 3.35 TB/s and its FLOPs over 67 TFLOP/s) and
+its library yardstick's time; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -94,7 +107,10 @@ RFF_LARGE_PHASE = 500.0
 SPD_RTOL, SPD_ATOL = 1e-4, 1e-5
 # (n, N): Ant's mass matrix at its full width, one env, 4x the envs, the
 # widest nv the JAX package names (30), and a ragged toy shape.
-SPD_SHAPES = [(14, 1024), (14, 1), (14, 4096), (30, 1024), (5, 17)]
+# Then n that leaves lanes of a half or full warp idle, and env counts
+# that leave a partial block (8 envs a block at n <= 16, 4 above).
+SPD_SHAPES = [(14, 1024), (14, 1), (14, 4096), (30, 1024), (5, 17),
+              (1, 9), (13, 1027), (16, 1029), (17, 9), (32, 1027)]
 SPD_TIMED = (14, 1024)
 SPD_RHS = 4  # K for the multi-right-hand-side substitute
 
@@ -103,10 +119,16 @@ SPD_RHS = 4  # K for the multi-right-hand-side substitute
 # (A = B B^T + nv I kept at the ancestor pairs, made diagonally dominant).
 TREE_RTOL, TREE_ATOL = 1e-4, 1e-5
 # (tree, N): Humanoid's at its full width, one env and a ragged count,
-# Ant's nearly dense tree at its width, and a random 30-dof tree.
+# Ant's nearly dense tree at its width, a random 30-dof tree, then env
+# counts that leave a partial block (16 envs a block) and a chain 40 deep
+# (longer than an env's 16 lanes).
 TREE_SHAPES = [("humanoid", 4096), ("humanoid", 1), ("humanoid", 17),
-               ("ant", 1024), ("random30", 1024)]
+               ("ant", 1024), ("random30", 1024), ("ant", 1025),
+               ("random30", 1027), ("chain40", 1027)]
 TREE_TIMED = ("humanoid", 4096)
+# The tree-vs-dense A/B behind the 0.66 pick: Humanoid's tree (fill
+# 0.643) and Ant's (0.771), each at its path width.
+TREE_AB = [("humanoid", 4096), ("ant", 1024)]
 TREE_RHS = 4
 
 
@@ -170,19 +192,25 @@ def _median_ms(fn, n=50, warmup=5):
     return statistics.median(times)
 
 
-def _device_ms(fn, n=50):
-    """Mean device time per call of the kernels ``fn`` launches, from a
-    torch.profiler trace; None when the trace holds no device time."""
+def _device_ms(fn, n=50, traces=3):
+    """Mean device time per call of the kernels ``fn`` launches, from
+    torch.profiler traces of n calls: the largest of ``traces`` traces (a
+    trace that drops kernel records reads low, never high); None when no
+    trace holds device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(getattr(e, "self_device_time_total", 0.0)
-                   for e in prof.key_averages())
-    return total_us / 1000.0 / n if total_us > 0 else None
+    best = None
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(getattr(e, "self_device_time_total", 0.0)
+                       for e in prof.key_averages())
+        if total_us > 0:
+            best = max(best or 0.0, total_us / 1000.0 / n)
+    return best
 
 
 def _fmt(v):
@@ -193,6 +221,20 @@ def _times(kernel_fn, plain_fn):
     return {"ms": _median_ms(kernel_fn), "plain_ms": _median_ms(plain_fn),
             "dev_ms": _device_ms(kernel_fn),
             "plain_dev_ms": _device_ms(plain_fn)}
+
+
+def _library_times(fn):
+    return {"ms": _median_ms(fn), "dev_ms": _device_ms(fn)}
+
+
+def _library_line(name, t):
+    return (f"{name}: {t['ms']:.4f} ms per call (median of 50, CUDA "
+            f"events), device {_fmt(t['dev_ms'])} per call (profiler)")
+
+
+def _bound_line(b):
+    return (f"bound {b.ms:.5f} ms by {b.by} ({b.bytes} B, {b.flops} "
+            f"FLOP)")
 
 
 def _time_line(t):
@@ -262,7 +304,7 @@ def _rff_large_phase(b, d, m, a):
 
 
 def phase_rff_kernel():
-    from bayes_sim_ig_tpu_torch.ops import rff_kernel
+    from bayes_sim_ig_tpu_torch.ops import bounds, rff_kernel
     a = 0.1
     worst = 0.0
     times = {}
@@ -276,7 +318,9 @@ def phase_rff_kernel():
             times[b] = _times(
                 lambda: rff_kernel.rff_features_cuda(x, coeff, a),
                 lambda: rff_kernel.rff_features_reference(x, coeff, a))
-            line += f" | {_time_line(times[b])}"
+            bound = bounds.rff_features(b, d, m)
+            times[b]["bound_ms"] = bound.ms
+            line += f" | {_time_line(times[b])} | {_bound_line(bound)}"
         print(line, flush=True)
     for b, d, m in RFF_MISALIGNED:
         x, coeff = _rff_inputs(b, d, m, rows_before=1)
@@ -290,6 +334,7 @@ def phase_rff_kernel():
     for b in (1, 100, 1000):
         _rff_large_phase(b, 302, 100, a)
     return {"max_abs_err": worst, **times[RFF_TIMED[0]],
+            "bound": bounds.rff_features(*RFF_TIMED),
             "times": {f"B={b}": times[b] for b in RFF_TIMED_B}}
 
 
@@ -319,7 +364,37 @@ def _check(name, got, want, shape):
     return err
 
 
+# The library call that computes each SPD entry point's function.
+LIBRARY = {"factor": "torch.linalg.cholesky_ex",
+           "substitute": "torch.cholesky_solve",
+           "solve": "torch.linalg.solve"}
+
+
+def _spd_library(sk, At, bt, Lt):
+    """Each SPD entry point's library yardstick on the same systems,
+    env-first and contiguous: A (N, n, n), L (N, n, n), b (N, n, 1); the
+    permutes are made before the timing. Checks each against the plain
+    versions first."""
+    A = At.permute(2, 0, 1).contiguous()
+    L = Lt.permute(2, 1, 0).contiguous()  # Lt[k][i] = L[i][k]
+    b = bt.T.contiguous()[..., None]
+    fac, info = torch.linalg.cholesky_ex(A)
+    torch.cuda.synchronize()
+    assert int(info.abs().max()) == 0
+    x_plain = sk._chol_lanes_substitute(Lt, bt)
+    for name, got, want in (
+            ("cholesky_ex", fac, L),
+            ("cholesky_solve", torch.cholesky_solve(b, L)[..., 0].T, x_plain),
+            ("linalg.solve", torch.linalg.solve(A, b)[..., 0].T, x_plain)):
+        _check(f"library {name} vs the plain version", got, want,
+               tuple(At.shape[1:]))
+    return {"factor": _library_times(lambda: torch.linalg.cholesky_ex(A)),
+            "substitute": _library_times(lambda: torch.cholesky_solve(b, L)),
+            "solve": _library_times(lambda: torch.linalg.solve(A, b))}
+
+
 def phase_spd_kernel():
+    from bayes_sim_ig_tpu_torch.ops import bounds
     from bayes_sim_ig_tpu_torch.ops import spd_kernel as sk
     worst = collections.defaultdict(float)
     timed = {}
@@ -363,26 +438,37 @@ def phase_spd_kernel():
                 lambda: sk._chol_lanes_substitute(Lp, bt))
             timed["solve"] = _times(lambda: sk.spd_solve_lanes_cuda(At, bt),
                                     lambda: sk._chol_lanes_core(At, bt))
+            library = _spd_library(sk, At, bt, Lp)
             for entry, t in timed.items():
+                t["library"] = library[entry]
+                t["bound"] = getattr(bounds, f"spd_{entry}")(n, N)
                 print(f"[kernel] spd_{entry}_lanes (n, N) = {(n, N)}: "
-                      f"{_time_line(t)}", flush=True)
+                      f"{_time_line(t)} | {_bound_line(t['bound'])} | "
+                      f"library {_library_line(LIBRARY[entry], t['library'])}",
+                      flush=True)
     # NaN policy: one negative-definite system (env 5) poisons only its
     # own column; every other env is bit for bit the clean result.
     n, N = SPD_TIMED
     At, bt = _spd_inputs(n, N, seed=n)
-    clean = sk.spd_substitute_lanes_cuda(sk.spd_factor_lanes_cuda(At), bt)
+    clean_L = sk.spd_factor_lanes_cuda(At)
+    clean = sk.spd_substitute_lanes_cuda(clean_L, bt)
+    clean_fused = sk.spd_solve_lanes_cuda(At, bt)
     bad = At.clone()
     bad[:, :, 5] = -torch.eye(n, device=At.device)
-    x = sk.spd_substitute_lanes_cuda(sk.spd_factor_lanes_cuda(bad), bt)
+    L = sk.spd_factor_lanes_cuda(bad)
+    x = sk.spd_substitute_lanes_cuda(L, bt)
     fused = sk.spd_solve_lanes_cuda(bad, bt)
     torch.cuda.synchronize()
     others = torch.ones(N, dtype=torch.bool, device=At.device)
     others[5] = False
     ok = (bool(torch.isnan(x[:, 5]).all()) and bool(torch.isnan(
-        fused[:, 5]).all()) and torch.equal(x[:, others], clean[:, others]))
+        fused[:, 5]).all()) and torch.equal(x[:, others], clean[:, others])
+        and torch.equal(L[..., others], clean_L[..., others])
+        and torch.equal(fused[:, others], clean_fused[:, others]))
     print(f"[kernel] spd NaN policy (n, N) = {(n, N)}: negative pivot in env"
-          f" 5 -> NaN in its column only: {'ok' if ok else 'MISMATCH'}",
-          flush=True)
+          f" 5 -> NaN in its column only, every other env of the factor, "
+          f"substitute and fused solve bit-equal to the clean run: "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
     if not ok:
         raise AssertionError("the SPD kernels break the NaN-pivot policy")
     return {entry: {"max_abs_err": worst[entry], **timed[entry]}
@@ -407,6 +493,8 @@ def _tree_chains(tree):
         return build_humanoid_model().dof_anc_chains
     if tree == "ant":
         return build_ant_model().dof_anc_chains
+    if tree == "chain40":
+        return [list(range(k - 1, -1, -1)) for k in range(40)]
     return _random_chains(30, 0)
 
 
@@ -448,6 +536,64 @@ def _tree_check(name, got, want, shape):
     return err
 
 
+def _tree_times(ts, chains, Mp, At, b, H, D, shape):
+    """At the path's shape: both kernels against the path's plain
+    (left-looking) version, the bounds, and the dense library yardstick
+    of the pair."""
+    from bayes_sim_ig_tpu_torch.ops import bounds
+    timed = {
+        "factor": _times(lambda: ts.ltdl_factor_cuda(chains, Mp),
+                         lambda: ts.ltdl_factor_plain(chains, Mp, True)),
+        "substitute": _times(
+            lambda: ts.ltdl_substitute_cuda(chains, (H, D), b),
+            lambda: ts.ltdl_substitute_plain(chains, (H, D), b))}
+    N = Mp.shape[1]
+    timed["factor"]["bound"] = bounds.tree_factor(chains, N)
+    timed["substitute"]["bound"] = bounds.tree_substitute(chains, N)
+    for entry in ("factor", "substitute"):
+        print(f"[kernel] tree_ltdl_{entry} {shape} (plain: the path's "
+              f"left-looking form; {ts.GROUP} lanes an env): "
+              f"{_time_line(timed[entry])} | "
+              f"{_bound_line(timed[entry]['bound'])}", flush=True)
+    # No single call computes a branch-sparse L^T D L: the yardstick of the
+    # pair is the dense Cholesky factor + solve of the same systems,
+    # env-first and contiguous (the permute excluded).
+    A = At.permute(2, 0, 1).contiguous()
+    bb = b.T.contiguous()[..., None]
+
+    def dense_pair():
+        return torch.cholesky_solve(bb, torch.linalg.cholesky_ex(A)[0])
+    _tree_check("dense cholesky_ex + cholesky_solve vs the tree kernels",
+                dense_pair()[..., 0].T, ts.ltdl_substitute_cuda(
+                    chains, ts.ltdl_factor_cuda(chains, Mp), b), shape)
+    pair = _library_times(dense_pair)
+    timed["factor"]["dense_pair"] = timed["substitute"]["dense_pair"] = pair
+    print(f"[kernel] tree pair yardstick {shape}, "
+          f"{_library_line('cholesky_ex + cholesky_solve (dense)', pair)}",
+          flush=True)
+    return timed
+
+
+def _tree_vs_dense(ts, sk, chains, Mp, At, b, shape):
+    """The H100 A/B behind the 0.66 pick: both tree kernels against both
+    dense SPD kernels on the same systems."""
+    def tree_pair_solve():
+        return ts.ltdl_substitute_cuda(chains, ts.ltdl_factor_cuda(chains, Mp),
+                                       b)
+
+    def dense_solve():
+        return sk.spd_substitute_lanes_cuda(sk.spd_factor_lanes_cuda(At), b)
+    torch.cuda.synchronize()
+    _tree_check("tree vs dense SPD kernels", tree_pair_solve(), dense_solve(),
+                shape)
+    t = _times(tree_pair_solve, dense_solve)
+    fill = ts.tree_tables(chains).E / (len(chains) * (len(chains) + 1) / 2)
+    print(f"[kernel] tree vs dense A/B {shape}, fill {fill:.3f}, factor + "
+          f"substitute: tree {t['ms']:.4f} ms, dense {t['plain_ms']:.4f} ms per"
+          f" call (median of 50, CUDA events); device time per call tree "
+          f"{_fmt(t['dev_ms'])}, dense {_fmt(t['plain_dev_ms'])}", flush=True)
+
+
 def phase_tree_kernel():
     from bayes_sim_ig_tpu_torch.ops import spd_kernel as sk
     from bayes_sim_ig_tpu_torch.ops import tree_solve as ts
@@ -473,36 +619,9 @@ def phase_tree_kernel():
             "tree_ltdl factor+substitute vs the dense Cholesky solve", x,
             sk._chol_lanes_core(At, b), shape))
         if (tree, N) == TREE_TIMED:
-            timed["factor"] = _times(
-                lambda: ts.ltdl_factor_cuda(chains, Mp),
-                lambda: ts.ltdl_factor_plain(chains, Mp, True))
-            timed["substitute"] = _times(
-                lambda: ts.ltdl_substitute_cuda(chains, (H, D), b),
-                lambda: ts.ltdl_substitute_plain(chains, (H, D), b))
-            for entry in ("factor", "substitute"):
-                print(f"[kernel] tree_ltdl_{entry} {shape} (plain: the "
-                      f"path's left-looking form): "
-                      f"{_time_line(timed[entry])}", flush=True)
-            # The H100 A/B behind the 0.66 pick: both tree kernels against
-            # both dense SPD kernels on the same systems.
-
-            def tree_pair_solve():
-                return ts.ltdl_substitute_cuda(
-                    chains, ts.ltdl_factor_cuda(chains, Mp), b)
-
-            def dense_solve():
-                return sk.spd_substitute_lanes_cuda(
-                    sk.spd_factor_lanes_cuda(At), b)
-            torch.cuda.synchronize()
-            _tree_check("tree vs dense SPD kernels", tree_pair_solve(),
-                        dense_solve(), shape)
-            timed["ab"] = _times(tree_pair_solve, dense_solve)
-            t = timed["ab"]
-            print(f"[kernel] tree vs dense A/B {shape}, factor + substitute:"
-                  f" tree {t['ms']:.4f} ms, dense {t['plain_ms']:.4f} ms per"
-                  f" call (median of 50, CUDA events); device time per call "
-                  f"tree {_fmt(t['dev_ms'])}, dense {_fmt(t['plain_dev_ms'])}",
-                  flush=True)
+            timed = _tree_times(ts, chains, Mp, At, b, H, D, shape)
+        if (tree, N) in TREE_AB:
+            _tree_vs_dense(ts, sk, chains, Mp, At, b, shape)
     # NaN policy: env 5 negated (every pivot negative) is NaN in D and x
     # only in its own column; every other env bit for bit the clean run.
     chains = _tree_chains(TREE_TIMED[0])
@@ -521,7 +640,8 @@ def phase_tree_kernel():
     ok = (bool(torch.isnan(Db[:, 5]).all()) and bool(torch.isnan(
         x[:, 5]).all()) and torch.equal(torch.isnan(Db), torch.isnan(Dp))
         and torch.equal(x[:, others], clean[:, others])
-        and torch.equal(Db[:, others], D[:, others]))
+        and torch.equal(Db[:, others], D[:, others])
+        and torch.equal(Hb[:, others], H[:, others]))
     print(f"[kernel] tree NaN policy (Humanoid, N {N}): indefinite env 5 -> "
           f"NaN in its D and x only, NaN positions as the plain version's, "
           f"other envs bit-equal: {'ok' if ok else 'MISMATCH'}", flush=True)
@@ -756,6 +876,25 @@ def phase_adr_pendulum():
           flush=True)
 
 
+def _kernel_entry(name, source, replaces, launches, t, library_call=None,
+                  **extra):
+    """One kernel's object of the kernels line. ``library_ms`` is the
+    time of the one PyTorch call computing the same function (null where
+    there is none); ``dense_pair_ms`` (tree kernels) is the dense
+    factor + solve yardstick of the pair, not a library version of one
+    kernel."""
+    lib = t.get("library")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "dev_ms": t["dev_ms"],
+            "plain_dev_ms": t["plain_dev_ms"], "bound_ms": t["bound"].ms,
+            "bound_by": t["bound"].by,
+            "library_ms": None if lib is None else lib["ms"],
+            "library_dev_ms": None if lib is None else lib["dev_ms"],
+            "library_call": library_call, **extra}
+
+
 def main():
     smi = phase_device()
     phase_build()
@@ -766,34 +905,27 @@ def main():
     cartpole = phase_adr_cartpole()
     humanoid = phase_adr_humanoid()
     phase_adr_pendulum()
-    spd_src = "bayes_sim_ig_tpu_torch/csrc/spd_lanes.cu"
-    spd_tpu = "bayes_sim_ig_tpu/ops/spd_kernel.py:143"
-    kernels = [{
-        "name": "rff_features", "route": "cuda",
-        "source": "bayes_sim_ig_tpu_torch/csrc/rff_features.cu",
-        "replaces": "bayes_sim_ig_tpu/ops/rff_kernel.py:50",
-        "launches": cartpole["rff_features"],
-        "max_abs_err": rff["max_abs_err"], "ms": rff["ms"],
-        "plain_ms": rff["plain_ms"], "times": rff["times"]}]
+    kernels = [_kernel_entry(
+        "rff_features", "bayes_sim_ig_tpu_torch/csrc/rff_features.cu",
+        "bayes_sim_ig_tpu/ops/rff_kernel.py:50", cartpole["rff_features"],
+        rff, times=rff["times"])]
     for entry in ("factor", "substitute"):
-        kernels.append({
-            "name": f"spd_{entry}_lanes", "route": "cuda",
-            "source": spd_src, "replaces": spd_tpu,
-            "launches": ant[f"spd_{entry}_lanes"],
-            "max_abs_err": spd[entry]["max_abs_err"],
-            "ms": spd[entry]["ms"], "plain_ms": spd[entry]["plain_ms"]})
+        kernels.append(_kernel_entry(
+            f"spd_{entry}_lanes", "bayes_sim_ig_tpu_torch/csrc/spd_lanes.cu",
+            "bayes_sim_ig_tpu/ops/spd_kernel.py:143",
+            ant[f"spd_{entry}_lanes"], spd[entry],
+            library_call=LIBRARY[entry]))
     # The factor kernel replaces both forms of the JAX factor (:50, :76);
     # Humanoid's path there takes the left-looking one.
-    tree_src = "bayes_sim_ig_tpu_torch/csrc/tree_ltdl.cu"
     for entry, replaces in (
             ("factor", "bayes_sim_ig_tpu/ops/tree_solve.py:76"),
             ("substitute", "bayes_sim_ig_tpu/ops/tree_solve.py:127")):
-        kernels.append({
-            "name": f"tree_ltdl_{entry}", "route": "cuda",
-            "source": tree_src, "replaces": replaces,
-            "launches": humanoid[f"tree_ltdl_{entry}"],
-            "max_abs_err": tree[entry]["max_abs_err"],
-            "ms": tree[entry]["ms"], "plain_ms": tree[entry]["plain_ms"]})
+        t = tree[entry]
+        kernels.append(_kernel_entry(
+            f"tree_ltdl_{entry}", "bayes_sim_ig_tpu_torch/csrc/tree_ltdl.cu",
+            replaces, humanoid[f"tree_ltdl_{entry}"], t,
+            dense_pair_ms=t["dense_pair"]["ms"],
+            dense_pair_dev_ms=t["dense_pair"]["dev_ms"]))
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {smi}")
     print(json.dumps({"ok": True, "device": {

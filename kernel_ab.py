@@ -1,0 +1,283 @@
+"""A/B of the port's SPD and tree kernels against their one-thread-per-env
+sources, on one CUDA card, in one process.
+
+    mkdir -p runs/ab/old
+    git show <rev>:bayes_sim_ig_tpu_torch/csrc/spd_lanes.cu > runs/ab/old/spd_lanes.cu
+    git show <rev>:bayes_sim_ig_tpu_torch/csrc/tree_ltdl.cu > runs/ab/old/tree_ltdl.cu
+    python3 kernel_ab.py runs/ab/old
+
+The old sources must expose the one-thread-per-env C interface (the SPD
+entries as today; the tree entries take the table [parent (nv), off
+(nv + 1)]). They are built with ``ops/build.py``'s flags into the same
+directory and loaded with ctypes beside the current kernels. At each
+path shape (SPD at (14, 1024), Ant's mass matrix; the tree kernels at
+Humanoid's tree and 4096 envs, and at Ant's tree and 1024 envs) the old
+and new kernels are timed in turns (old, new, new, old), each time the
+median of 50 calls with CUDA events and the device time per call from
+torch.profiler over 50 calls, then the plain version and the library
+yardstick once; then the current kernels' floors (``floors``). Prints
+one line per entry point and writes everything to
+chiprun_out/kernel_ab.json.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+import chip_smoke as cs
+from bayes_sim_ig_tpu_torch.ops import bounds, build, spd_kernel as sk
+from bayes_sim_ig_tpu_torch.ops import tree_solve as ts
+
+OUT = os.path.join(cs.HERE, "chiprun_out", "kernel_ab.json")
+
+
+def _build_old(old_dir, name):
+    src = os.path.join(old_dir, f"{name}.cu")
+    lib = os.path.join(old_dir, f"{name}_old.so")
+    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", lib, src],
+                   check=True, capture_output=True, text=True)
+    return ctypes.CDLL(lib)
+
+
+def _old_fns(old_dir):
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        spd = pool.submit(_build_old, old_dir, "spd_lanes")
+        tree = pool.submit(_build_old, old_dir, "tree_ltdl")
+        new = [pool.submit(sk._kernel_fns), pool.submit(ts._kernel_fns)]
+        spd, tree = spd.result(), tree.result()
+        for f in new:
+            f.result()
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    spd.spd_factor_lanes_f32.argtypes = [ptr, ptr, i32, i32, ptr]
+    spd.spd_substitute_lanes_f32.argtypes = [ptr, ptr, ptr, i32, i32, i32,
+                                             ptr]
+    spd.spd_solve_lanes_f32.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
+    tree.tree_ltdl_factor_f32.argtypes = [ptr, i32, i32, ptr, ptr, ptr, i32,
+                                          ptr]
+    tree.tree_ltdl_substitute_f32.argtypes = [ptr, i32, i32, ptr, ptr, ptr,
+                                              ptr, i32, i32, ptr]
+    return spd, tree
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _call(fn, *args):
+    err = fn(*args, _stream())
+    if err != 0:
+        raise RuntimeError(f"old kernel launch failed: CUDA error {err}")
+
+
+def _measure(fn):
+    return {"ms": cs._median_ms(fn), "dev_ms": cs._device_ms(fn)}
+
+
+def _ab(name, old, new, plain, library, bound, check):
+    """old, new, new, old; then plain and library once. ``check`` holds
+    both kernels against the plain version first."""
+    check()
+    runs = {"old": [], "new": []}
+    for who in ("old", "new", "new", "old"):
+        runs[who].append(_measure(old if who == "old" else new))
+    res = {"old": runs["old"], "new": runs["new"], "plain": _measure(plain),
+           "library": None if library is None else _measure(library),
+           "bound_ms": bound.ms, "bound_by": bound.by}
+    old_dev = [r["dev_ms"] for r in runs["old"]]
+    new_dev = [r["dev_ms"] for r in runs["new"]]
+    lib = res["library"]
+    print(f"[ab] {name}: device ms old {old_dev} new {new_dev} plain "
+          f"{res['plain']['dev_ms']} library "
+          f"{None if lib is None else lib['dev_ms']} bound {bound.ms:.5f} "
+          f"({bound.by}) | per call ms old "
+          f"{[r['ms'] for r in runs['old']]} new "
+          f"{[r['ms'] for r in runs['new']]} plain {res['plain']['ms']} "
+          f"library {None if lib is None else lib['ms']}", flush=True)
+    return res
+
+
+def _close(what, got, want):
+    torch.cuda.synchronize()
+    if not torch.allclose(got, want, rtol=cs.SPD_RTOL, atol=cs.SPD_ATOL):
+        raise AssertionError(f"{what} disagrees with the plain version: max "
+                             f"abs err {float((got - want).abs().max())}")
+
+
+def spd_ab(old):
+    n, N = cs.SPD_TIMED
+    At, bt = cs._spd_inputs(n, N, seed=n)
+    Lp = sk._chol_lanes_factor(At)
+    A = At.permute(2, 0, 1).contiguous()
+    L = Lp.permute(2, 1, 0).contiguous()
+    b = bt.T.contiguous()[..., None]
+
+    def old_factor():
+        Lt = torch.empty_like(At)
+        _call(old.spd_factor_lanes_f32, At.data_ptr(), Lt.data_ptr(), n, N)
+        return Lt
+
+    def old_sub():
+        x = torch.empty_like(bt)
+        _call(old.spd_substitute_lanes_f32, Lp.data_ptr(), bt.data_ptr(),
+              x.data_ptr(), n, 1, N)
+        return x
+
+    def old_solve():
+        x = torch.empty_like(bt)
+        _call(old.spd_solve_lanes_f32, At.data_ptr(), bt.data_ptr(),
+              x.data_ptr(), n, N)
+        return x
+
+    def check(o, nw, p):
+        def run():
+            _close("old", o(), p())
+            _close("new", nw(), p())
+        return run
+
+    def new_factor():
+        return sk.spd_factor_lanes_cuda(At)
+
+    def new_sub():
+        return sk.spd_substitute_lanes_cuda(Lp, bt)
+
+    def new_solve():
+        return sk.spd_solve_lanes_cuda(At, bt)
+
+    def plain_factor():
+        return sk._chol_lanes_factor(At)
+
+    def plain_sub():
+        return sk._chol_lanes_substitute(Lp, bt)
+
+    def plain_solve():
+        return sk._chol_lanes_core(At, bt)
+    shape = f"(n {n}, N {N})"
+    return {
+        "spd_factor_lanes": _ab(
+            f"spd_factor_lanes {shape}", old_factor, new_factor, plain_factor,
+            lambda: torch.linalg.cholesky_ex(A), bounds.spd_factor(n, N),
+            check(old_factor, new_factor, plain_factor)),
+        "spd_substitute_lanes": _ab(
+            f"spd_substitute_lanes K=1 {shape}", old_sub, new_sub, plain_sub,
+            lambda: torch.cholesky_solve(b, L), bounds.spd_substitute(n, N),
+            check(old_sub, new_sub, plain_sub)),
+        "spd_solve_lanes": _ab(
+            f"spd_solve_lanes {shape}", old_solve, new_solve, plain_solve,
+            lambda: torch.linalg.solve(A, b), bounds.spd_solve(n, N),
+            check(old_solve, new_solve, plain_solve)),
+    }
+
+
+def tree_ab(old, tree, N):
+    chains = cs._tree_chains(tree)
+    tt = ts.tree_tables(chains)
+    Mp, At, b, _ = cs._tree_inputs(chains, N)
+    table = torch.as_tensor(np.asarray(tt.parent + tt.off, np.int32),
+                            device="cuda:0")
+    H, D = ts.ltdl_factor_plain(chains, Mp)
+    A = At.permute(2, 0, 1).contiguous()
+    bb = b.T.contiguous()[..., None]
+
+    def old_factor():
+        Ho, Do = torch.empty_like(Mp), Mp.new_empty(tt.nv, N)
+        _call(old.tree_ltdl_factor_f32, table.data_ptr(), tt.nv, tt.E,
+              Mp.data_ptr(), Ho.data_ptr(), Do.data_ptr(), N)
+        return Ho, Do
+
+    def old_sub():
+        x = torch.empty_like(b)
+        _call(old.tree_ltdl_substitute_f32, table.data_ptr(), tt.nv, tt.E,
+              H.data_ptr(), D.data_ptr(), b.data_ptr(), x.data_ptr(), 1, N)
+        return x
+
+    def new_factor():
+        return ts.ltdl_factor_cuda(chains, Mp)
+
+    def new_sub():
+        return ts.ltdl_substitute_cuda(chains, (H, D), b)
+
+    def plain_factor():
+        return ts.ltdl_factor_plain(chains, Mp, True)
+
+    def plain_sub():
+        return ts.ltdl_substitute_plain(chains, (H, D), b)
+
+    def check_factor():
+        for fn in (old_factor, new_factor):
+            got = fn()
+            _close("H", got[0], H)
+            _close("D", got[1], D)
+
+    def check_sub():
+        _close("old", old_sub(), plain_sub())
+        _close("new", new_sub(), plain_sub())
+
+    def dense_pair():
+        return torch.cholesky_solve(bb, torch.linalg.cholesky_ex(A)[0])
+    shape = f"({tree}: nv {tt.nv}, E {tt.E}, N {N}; {ts.GROUP} lanes an env)"
+    res = {
+        "tree_ltdl_factor": _ab(
+            f"tree_ltdl_factor {shape}", old_factor, new_factor,
+            plain_factor, None, bounds.tree_factor(chains, N), check_factor),
+        "tree_ltdl_substitute": _ab(
+            f"tree_ltdl_substitute K=1 {shape}", old_sub, new_sub, plain_sub,
+            None, bounds.tree_substitute(chains, N), check_sub)}
+    res["dense_pair"] = _measure(dense_pair)
+    print(f"[ab] dense cholesky_ex + cholesky_solve {shape}: "
+          f"{res['dense_pair']}", flush=True)
+    return res
+
+
+def floors():
+    """What the current kernels take with (almost) no arithmetic: the SPD
+    kernels at n = 1, N = 1024 (launch, one staging round trip, the
+    store), and the tree factor at Humanoid's tree, N = 4096, with a
+    schedule of one empty round (staging and storing its slabs only)."""
+    At, bt = cs._spd_inputs(1, 1024, seed=1)
+    Lt = sk.spd_factor_lanes_cuda(At)
+    out = {"spd_n1": {
+        "factor": _measure(lambda: sk.spd_factor_lanes_cuda(At)),
+        "substitute": _measure(lambda: sk.spd_substitute_lanes_cuda(Lt, bt)),
+        "solve": _measure(lambda: sk.spd_solve_lanes_cuda(At, bt))}}
+    chains = cs._tree_chains("humanoid")
+    tt = ts.tree_tables(chains)
+    Mp = cs._tree_inputs(chains, 4096)[0]
+    H, D = torch.empty_like(Mp), Mp.new_empty(tt.nv, 4096)
+    down = ts.back_rounds(tt)
+    begin, entries = ts.contributions(tt)
+    empty = np.concatenate([
+        tt.off, tt.anc, down.ravel(), [ts._FIRST_ROUND | ts._LAST_ROUND],
+        np.full(ts.GROUP, -1), begin, entries]).astype(np.int32)
+    table = torch.as_tensor(empty, device="cuda:0")
+    fn = ts._kernel_fns()["factor"]
+    out["tree_factor_no_rounds"] = _measure(lambda: _call(
+        fn, table.data_ptr(), table.numel(), tt.nv, tt.E, len(down), 1,
+        Mp.data_ptr(), H.data_ptr(), D.data_ptr(), 4096))
+    print(f"[ab] floors: {out}", flush=True)
+    return out
+
+
+def main(argv):
+    if len(argv) != 1:
+        raise SystemExit(__doc__)
+    smi = cs.phase_device()
+    old_spd, old_tree = _old_fns(argv[0])
+    out = {"card": smi, "spd": spd_ab(old_spd),
+           "tree_humanoid": tree_ab(old_tree, "humanoid", 4096),
+           "tree_ant": tree_ab(old_tree, "ant", 1024), "floors": floors()}
+    os.makedirs(os.path.dirname(OUT), exist_ok=True)
+    with open(OUT, "w") as f:
+        json.dump(out, f, indent=1)
+    print(f"[ab] wrote {OUT}; card {smi}")
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

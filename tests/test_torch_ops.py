@@ -1,8 +1,9 @@
 """The port's RFF projection: its plain version against the JAX Pallas
 kernel (interpret mode, as tests/test_ops.py runs it) and the JAX
 reference, both against float64 at large phases, the wrapper's dispatch
-on CPU tensors, and, on a CUDA card only, the hand-written kernel against
-the plain version (every row tile, vector width and a misaligned base)."""
+on CPU tensors, the bound counts, and, on a CUDA card only, the
+hand-written kernel against the plain version (every row tile, vector
+width and a misaligned base)."""
 
 import numpy as np
 import pytest
@@ -13,11 +14,23 @@ import jax.numpy as jnp
 from bayes_sim_ig_tpu.ops.rff_kernel import (
     rff_features_pallas, rff_features_reference as jax_reference,
 )
-from bayes_sim_ig_tpu_torch.ops import rff_kernel
+from bayes_sim_ig_tpu_torch.ops import bounds, rff_kernel
 
 torch.set_num_threads(1)
 
 RTOL, ATOL = 2e-4, 1e-5  # tests/test_ops.py:31-32
+
+
+@pytest.mark.parametrize("b", [1, 100, 1000])
+def test_bound_hand_counts(b):
+    """x (B, 302) and coeff (302, 100) read once, (B, 200) written once;
+    2 B d m FLOPs of the product and 4 B m of the epilogue."""
+    f = bounds.rff_features(b, 302, 100)
+    assert f.bytes == 4 * (b * 302 + 302 * 100 + b * 200)
+    assert f.flops == 2 * b * 302 * 100 + 4 * b * 100
+    assert f.ms == pytest.approx(1e3 * max(f.bytes / 3.35e12,
+                                           f.flops / 67e12))
+    assert f.by == ("bytes" if b < 1000 else "operations")
 
 
 def _inputs(b, d, m, seed=0):

@@ -2,8 +2,9 @@
 versions against the JAX package's lanes Cholesky and its Pallas kernel
 (interpret mode, as tests/test_ops.py runs it), the NaN-pivot policy, K
 right-hand sides, the autograd backward against the Pallas VJP, the
-wrappers' dispatch on CPU tensors, and, on a CUDA card only, the
-hand-written kernels against the plain versions.
+wrappers' dispatch on CPU tensors, the kernels' lane algorithm replayed
+in numpy, the bound counts, and, on a CUDA card only, the hand-written
+kernels against the plain versions (at odd n and env counts too).
 
 Tolerances: the plain Cholesky against JAX's is the same algorithm in
 float32 with sums taken in another order, rtol 1e-5 / atol 1e-6 on
@@ -20,7 +21,7 @@ import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
 from bayes_sim_ig_tpu.ops import spd_kernel as jspd
-from bayes_sim_ig_tpu_torch.ops import spd_kernel
+from bayes_sim_ig_tpu_torch.ops import bounds, spd_kernel
 
 torch.set_num_threads(1)
 
@@ -155,6 +156,73 @@ def test_standard_layout_solve():
                                **LOOSE)
 
 
+def _replay_lanes(At, bt):
+    """csrc/spd_lanes.cu's lane algorithm in numpy float32, lanes as the
+    row axis: the right-looking factor (column step k: the pivot lane's
+    raw pivot, every lane's own divide, the rank-1 update of the trailing
+    rows with L[j][k] from lane j), then the forward pass and the back
+    pass, one broadcast value a step. Returns (Lt, x)."""
+    n, _, N = At.shape
+    a = np.array(At.transpose(2, 0, 1))                     # (N, i, j)
+    for k in range(n):
+        raw = a[:, k, k]
+        d = np.where(raw > 0, np.sqrt(np.maximum(raw, 1e-30)),
+                     np.float32(np.nan)).astype(np.float32)
+        lik = a[:, :, k] / d[:, None]
+        a[:, k:, k] = lik[:, k:]
+        for j in range(k + 1, n):
+            a[:, j:, j] -= lik[:, j:] * lik[:, j, None]
+    L = np.tril(a)
+    diag = np.diagonal(L, axis1=1, axis2=2)
+    acc, y = bt.T.copy(), np.zeros_like(bt.T)               # (N, i)
+    for k in range(n):
+        y[:, k] = acc[:, k] / diag[:, k]
+        acc[:, k + 1:] -= L[:, k + 1:, k] * y[:, k, None]
+    acc, x = y, np.zeros_like(y)
+    for k in range(n - 1, -1, -1):
+        x[:, k] = acc[:, k] / diag[:, k]
+        acc[:, :k] -= L[:, k, :k] * x[:, k, None]
+    return L.transpose(2, 1, 0), x.T
+
+
+@pytest.mark.parametrize("n,N", [(1, 3), (13, 5), (14, 9), (17, 4),
+                                 (32, 3)])
+def test_lane_algorithm_replay_matches_plain(n, N):
+    """The kernels' order of operations against the plain versions: the
+    factor and both passes within rtol 1e-4 / atol 1e-5 (sums in another
+    order), zeros above the diagonal exact, and a NaN pivot (env 0) NaN
+    in its env only."""
+    At, bt = _spd(n, N, seed=4 * n)
+    At[:, :, 0] = -np.eye(n, dtype=np.float32)
+    Lt, x = _replay_lanes(At, bt)
+    Lp = spd_kernel._chol_lanes_factor(_t(At))
+    np.testing.assert_allclose(Lt, Lp.numpy(), **LOOSE)
+    rows, cols = np.triu_indices(n, 1)
+    assert (Lt[cols, rows] == 0).all()
+    xp = spd_kernel._chol_lanes_substitute(Lp, _t(bt)).numpy()
+    np.testing.assert_allclose(x, xp, **LOOSE)
+    assert np.isnan(x[:, 0]).all() and np.isfinite(x[:, 1:]).all()
+
+
+def test_bounds_hand_counts():
+    """Bytes at Ant's path shape (n 14, N 1024): the factor reads A's
+    lower triangle (105 floats an env) and writes all of Lt (196); the
+    substitute reads L's lower triangle and b, writes x (14 each)."""
+    f = bounds.spd_factor(14, 1024)
+    assert f.bytes == 4 * 1024 * (105 + 196) == 1_232_896
+    assert f.flops == 1024 * (2 * 455 + 91 + 14)
+    s = bounds.spd_substitute(14, 1024)
+    assert s.bytes == 4 * 1024 * (105 + 14 + 14) == 544_768
+    assert s.flops == 1024 * (2 * 14 * 13 + 28)
+    assert bounds.spd_substitute(14, 1024, K=4).bytes == \
+        4 * 1024 * (105 + 8 * 14)
+    solve = bounds.spd_solve(14, 1024)
+    assert solve.bytes == 544_768 and solve.flops == f.flops + s.flops
+    assert f.by == s.by == solve.by == "bytes"
+    assert f.ms == pytest.approx(1_232_896 / 3.35e12 * 1e3)
+    assert s.ms == pytest.approx(0.00016261731, rel=1e-6)
+
+
 @pytest.mark.parametrize("fn,args", [
     ("spd_factor_lanes_cuda", ((3, 3, 4),)),
     ("spd_substitute_lanes_cuda", ((3, 3, 4), (3, 4))),
@@ -188,3 +256,36 @@ def test_kernels_match_plain_on_card(n, N, k):
     assert torch.isnan(x[..., 0]).all() and torch.isfinite(x[..., 1:]).all()
     fused = spd_kernel.spd_solve_lanes(A_c, b_c[0])
     torch.testing.assert_close(fused, x[0], equal_nan=True, **LOOSE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,N,k", [(1, 9, 1), (13, 1027, 2), (16, 1, 1),
+                                   (16, 1029, 3), (17, 9, 1), (32, 1027, 2),
+                                   (32, 5, 1)])
+def test_odd_shapes_on_card(n, N, k):
+    """The half-warp (n <= 16) and full-warp instances at n that leave
+    lanes idle and env counts that leave a partial block (8 or 4 envs a
+    block), against the plain versions; env 0 indefinite is NaN in its
+    env only, every other env bit for bit its clean run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    At, bt = _spd(n, N, seed=n + N, k=k)
+    clean_A, b_c = _t(At).cuda(), _t(bt).cuda()
+    A_c = clean_A.clone()
+    A_c[:, :, 0] = -torch.eye(n, device="cuda")
+    Lt = spd_kernel.spd_factor_lanes_cuda(A_c)
+    x = spd_kernel.spd_substitute_lanes_cuda(Lt, b_c)
+    fused = spd_kernel.spd_solve_lanes_cuda(A_c, b_c[0])
+    Lp = spd_kernel._chol_lanes_factor(A_c)
+    torch.testing.assert_close(Lt, Lp, equal_nan=True, **LOOSE)
+    torch.testing.assert_close(x, spd_kernel._chol_lanes_substitute(Lp, b_c),
+                               equal_nan=True, **LOOSE)
+    torch.testing.assert_close(fused, x[0], equal_nan=True, **LOOSE)
+    Lc = spd_kernel.spd_factor_lanes_cuda(clean_A)
+    xc = spd_kernel.spd_substitute_lanes_cuda(Lc, b_c)
+    fc = spd_kernel.spd_solve_lanes_cuda(clean_A, b_c[0])
+    torch.cuda.synchronize()
+    assert torch.isnan(x[..., 0]).all() and torch.isnan(fused[:, 0]).all()
+    assert torch.equal(Lt[..., 1:], Lc[..., 1:])
+    assert torch.equal(x[..., 1:], xc[..., 1:])
+    assert torch.equal(fused[:, 1:], fc[:, 1:])

@@ -2,8 +2,11 @@
 package's, on Humanoid's dof tree, Ant's and random trees (nv 5-30) built
 with numpy from a seed: every function of the JAX API, the tensor form
 the physics and the kernel use, K right-hand sides, the NaN-pivot policy,
-the wrappers' dispatch on CPU tensors, and, on a CUDA card only, the
-hand-written kernel (csrc/tree_ltdl.cu) against the plain version.
+the wrappers' dispatch on CPU tensors, the kernels' host-built schedules
+(each update once, no two lanes on one pair in a round, every pair's
+updates in the serial order; the rounds replayed with numpy equal the
+plain version bit for bit), the bound counts, and, on a CUDA card only,
+the hand-written kernel (csrc/tree_ltdl.cu) against the plain version.
 
 The systems are CRBA-like: a dense A = B B^T + n I kept at the ancestor
 pairs only and made diagonally dominant, so SPD. Tolerances: float32 on
@@ -21,6 +24,7 @@ import jax.numpy as jnp
 from bayes_sim_ig_tpu.ops import tree_solve as jts
 from bayes_sim_ig_tpu.sim.ant import build_ant_model
 from bayes_sim_ig_tpu.sim.humanoid import build_humanoid_model
+from bayes_sim_ig_tpu_torch.ops import bounds
 from bayes_sim_ig_tpu_torch.ops import tree_solve as tts
 
 torch.set_num_threads(1)
@@ -47,6 +51,10 @@ TREES = {
     "random12": _random_chains(12, 1),
     "random30": _random_chains(30, 2),
 }
+# The kernels' schedules also on a single chain 40 deep: depths past a
+# warp (the lanes loop), 820 pairs.
+SCHEDULE_TREES = {**TREES,
+                  "chain40": [list(range(k - 1, -1, -1)) for k in range(40)]}
 
 
 def _system(chains, n=N, seed=0, k=None):
@@ -89,6 +97,192 @@ def test_ancestor_pairs_and_tables(tree):
             assert tt.pairs[tt.off[k] + 1 + t] == (k, i)
     if tree == "humanoid":
         assert (tt.nv, tt.E, tt.mean_depth) == (27, 243, 8.0)
+    for p, (k, i) in enumerate(tt.pairs):
+        assert tt.anc[p] == i
+
+
+def _serial_updates(tt):
+    """The serial right-looking factor's updates, in its order: {target
+    pair row: [(c, t, s)]}, dof c eliminated leaf to root, (t, s) its
+    update of (chains[c][t], chains[c][s])."""
+    order = {}
+    for c in range(tt.nv - 1, -1, -1):
+        ch = tt.chains[c]
+        for t in range(len(ch)):
+            for s in range(t, len(ch)):
+                order.setdefault(tt.index[(ch[t], ch[s])], []).append(
+                    (c, t, s))
+    return order
+
+
+@pytest.mark.parametrize("tree", list(SCHEDULE_TREES))
+def test_factor_rounds_schedule(tree):
+    """Every pair is one task; a task's contributions are exactly the
+    serial factor's updates (c, t, s) of that pair, each once and in the
+    serial order over c; no two lanes of a round write one pair; a task
+    runs after the tasks of every pair it reads (its descendants'), and
+    the first and last rounds of each height carry their flags."""
+    tt = tts.tree_tables(SCHEDULE_TREES[tree])
+    head, slot = tts.factor_rounds(tt)
+    begin, entries = tts.contributions(tt)
+    assert slot.shape == (len(head), tts.GROUP)
+    assert (np.diff(begin) % tts._BATCH == 0).all()
+    assert (entries != tt.E).sum() == tt.E - tt.nv  # the rest is padding
+    serial = _serial_updates(tt)
+    done, when, level = set(), {}, 0
+    for r, lanes in enumerate(slot):
+        first, last = (bool(int(head[r]) & f) for f in
+                       (tts._FIRST_ROUND, tts._LAST_ROUND))
+        assert first == (r == 0 or bool(int(head[r - 1]) & tts._LAST_ROUND))
+        level += first
+        tasks = [int(u) for u in lanes if u >= 0]
+        targets = [tt.off[u & 255] + (u >> 8) for u in tasks]
+        assert tasks and len(set(targets)) == len(targets), (tree, r)
+        for u, p in zip(tasks, targets):
+            i, q = u & 255, u >> 8
+            assert 0 <= q <= len(tt.chains[i])
+            got = []
+            for row in entries[begin[i]:begin[i + 1]]:
+                if row == tt.E:
+                    continue  # padding: a zero term
+                c = tt.pairs[row][0]
+                t = row - tt.off[c] - 1
+                assert tt.chains[c][t] == i
+                got.append((c, t, t + q))
+                # the terms read c's pairs: done at a lower height
+                assert when[tt.off[c]] < level
+            assert got == serial.get(p, [])
+            when[p] = level
+            done.add(p)
+        assert last == (r + 1 == len(head)
+                        or bool(int(head[r + 1]) & tts._FIRST_ROUND))
+    assert sorted(done) == list(range(tt.E))
+
+
+@pytest.mark.parametrize("tree", list(SCHEDULE_TREES))
+def test_substitute_rounds_schedule(tree):
+    """Back pass: every dof once, after all its ancestors; no dof twice in
+    a round."""
+    tt = tts.tree_tables(SCHEDULE_TREES[tree])
+    down = tts.back_rounds(tt)
+    assert down.shape[1] == tts.GROUP
+    done = set()
+    for lanes in down:
+        ks = [int(k) for k in lanes if k >= 0]
+        assert ks and len(set(ks)) == len(ks)
+        for k in ks:
+            assert set(tt.chains[k]) <= done
+        done.update(ks)
+    assert sorted(done) == list(range(tt.nv))
+    assert down[down >= 0].size == tt.nv
+
+
+def test_kernel_table_layout():
+    tt = tts.tree_tables(TREES["humanoid"])
+    table, rd, rf = tts.kernel_table(tt)
+    begin, entries = tts.contributions(tt)
+    head, slot = tts.factor_rounds(tt)
+    down = tts.back_rounds(tt)
+    assert table.dtype == np.int32 and (rd, rf) == (len(down), len(head))
+    parts = np.split(table, np.cumsum([tt.nv + 1, tt.E, rd * 16, rf,
+                                       rf * 16, tt.nv + 1]))
+    assert parts[0].tolist() == tt.off and parts[1].tolist() == tt.anc
+    for got, want in zip(parts[2:], (down.ravel(), head, slot.ravel(), begin,
+                                     entries)):
+        assert np.array_equal(got, want)
+
+
+def _replay_factor(tt, Mp):
+    """csrc/tree_ltdl.cu's factor rounds replayed on numpy float32 (E, n):
+    each task subtracts its contributions in order, every lane of a round
+    reading the state before the round (as lanes that run at once do);
+    a height's multipliers after its last round."""
+    head, slot = tts.factor_rounds(tt)
+    begin, entries = tts.contributions(tt)
+    h, a = Mp.copy(), np.zeros_like(Mp)
+    level = []
+    for hd, lanes in zip(head, slot):
+        new = {}
+        for u in (int(u) for u in lanes if u >= 0):
+            i, q = u & 255, u >> 8
+            acc = h[tt.off[i] + q]
+            for row in entries[begin[i]:begin[i + 1]]:
+                if row < tt.E:  # the padding row E is a zero term
+                    acc = acc - a[row] * h[row + q]
+            new[tt.off[i] + q] = acc
+            level.append((i, q))
+        for p, v in new.items():
+            h[p] = v
+        if int(hd) & tts._LAST_ROUND:
+            for i, q in level:
+                if q:
+                    a[tt.off[i] + q] = h[tt.off[i] + q] / h[tt.off[i]]
+            level = []
+    a[tt.off[:-1]] = h[tt.off[:-1]]
+    piv = h[tt.off[:-1]]
+    return a, np.where(piv > 0, piv, np.float32(np.nan))
+
+
+def _replay_substitute(tt, H, D, b):
+    """The substitute kernel's up pass (one dof a round, one ancestor a
+    lane) and back rounds (each dof pulls from its chain) replayed on
+    numpy float32 as above."""
+    x = b.copy()
+    for k in range(tt.nv - 1, -1, -1):
+        rows = range(tt.off[k] + 1, tt.off[k + 1])
+        new = {tt.anc[p]: x[tt.anc[p]] - H[p] * x[k] for p in rows}
+        for i, v in new.items():
+            x[i] = v
+    x = x / D
+    for lanes in tts.back_rounds(tt):
+        new = {}
+        for k in (int(k) for k in lanes if k >= 0):
+            acc = x[k]
+            for p in range(tt.off[k] + 1, tt.off[k + 1]):
+                acc = acc - H[p] * x[tt.anc[p]]
+            new[k] = acc
+        for k, v in new.items():
+            x[k] = v
+    return x
+
+
+@pytest.mark.parametrize("tree", list(SCHEDULE_TREES))
+def test_kernel_rounds_replay_the_plain_version(tree):
+    """The kernels' schedules, replayed with the kernels' operations in
+    numpy float32, give the plain right-looking factor and the plain
+    substitute bit for bit (no fused multiply-add on either side: each
+    pair and row receives the same terms in the same order), including
+    the NaN pivots of an indefinite env."""
+    chains = SCHEDULE_TREES[tree]
+    tt = tts.tree_tables(chains)
+    Mp, b, _ = _system(chains, seed=11)
+    Mp[:, 2] = -Mp[:, 2]
+    H, D = _replay_factor(tt, Mp)
+    Hp, Dp = tts.ltdl_factor_plain(chains, torch.from_numpy(Mp))
+    np.testing.assert_array_equal(H, Hp.numpy())
+    np.testing.assert_array_equal(D, Dp.numpy())
+    x = _replay_substitute(tt, H, D, b)
+    xp = tts.ltdl_substitute_plain(chains, (Hp, Dp), torch.from_numpy(b))
+    np.testing.assert_array_equal(x, xp.numpy())
+    assert np.isnan(x[:, 2]).all() and np.isfinite(np.delete(x, 2, 1)).all()
+
+
+def test_bounds_hand_counts():
+    """Bytes at Humanoid's path shape (nv 27, E 243, N 4096): the factor
+    reads M and writes H (243 x 4096 floats each) and D (27 x 4096); the
+    substitute reads the 216 off-diagonal pairs, D and b, writes x."""
+    chains = TREES["humanoid"]
+    f = bounds.tree_factor(chains, 4096)
+    assert f.bytes == 4 * 4096 * (243 + 243 + 27) == 8_404_992
+    assert f.flops == 4096 * (3 * 1170 + 216)
+    s = bounds.tree_substitute(chains, 4096)
+    assert s.bytes == 4 * 4096 * (216 + 27 + 27 + 27) == 4_866_048
+    assert s.flops == 4096 * (4 * 216 + 27)
+    assert bounds.tree_substitute(chains, 4096, K=4).bytes == \
+        4 * 4096 * (216 + 27 + 8 * 27)
+    assert f.by == s.by == "bytes"
+    assert f.ms == pytest.approx(8_404_992 / 3.35e12 * 1e3)
+    assert s.ms == pytest.approx(0.0014525516, rel=1e-6)
 
 
 @pytest.mark.parametrize("form", ["right", "left"])
@@ -258,7 +452,7 @@ def test_kernel_tables_refuse_unordered_trees():
 
 
 def _card_system(tree, n, k):
-    chains = (TREES[tree] if tree in TREES else
+    chains = (SCHEDULE_TREES[tree] if tree in SCHEDULE_TREES else
               _random_chains(30, int(tree.rsplit("_", 1)[1])))
     Mp, b, _ = _system(chains, n=n, seed=10, k=k)
     Mp[:, 0] = -Mp[:, 0]  # env 0 indefinite: every pivot negative
@@ -296,3 +490,34 @@ def test_kernel_refuses_inputs_that_require_grad():
     chains, Mp, _ = _card_system("humanoid", 8, None)
     with pytest.raises(ValueError, match="gradient"):
         tts.ltdl_factor_cuda(chains, Mp.requires_grad_(True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tree,n,k", [
+    ("humanoid", 4097, 1), ("humanoid", 9, 3), ("ant", 1025, 1),
+    ("chain40", 37, 2), ("chain40", 1027, 1), ("random30", 5, 1)])
+def test_partial_blocks_on_card(tree, n, k):
+    """The kernels at env counts that leave a partial block (N not a
+    multiple of the 16 envs a block), and on chains longer than an env's
+    16 lanes, against the plain
+    version, with the NaN policy: the indefinite env 0 is NaN in D and x
+    only, every other env bit for bit its clean run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    chains, Mp, b = _card_system(tree, n, k)
+    H, D = tts.ltdl_factor_cuda(chains, Mp)
+    x = tts.ltdl_substitute_cuda(chains, (H, D), b)
+    Hp, Dp = tts.ltdl_factor_plain(chains, Mp)
+    torch.testing.assert_close(H, Hp, equal_nan=True, **TOL)
+    torch.testing.assert_close(D, Dp, equal_nan=True, **TOL)
+    torch.testing.assert_close(
+        x, tts.ltdl_substitute_plain(chains, (Hp, Dp), b), equal_nan=True,
+        **TOL)
+    clean = Mp.clone()
+    clean[:, 0] = -clean[:, 0]
+    Hc, Dc = tts.ltdl_factor_cuda(chains, clean)
+    xc = tts.ltdl_substitute_cuda(chains, (Hc, Dc), b)
+    torch.cuda.synchronize()
+    assert torch.isnan(D[:, 0]).all() and torch.isnan(x[..., 0]).all()
+    assert torch.equal(D[:, 1:], Dc[:, 1:]) and torch.equal(H[:, 1:], Hc[:, 1:])
+    assert torch.equal(x[..., 1:], xc[..., 1:])
