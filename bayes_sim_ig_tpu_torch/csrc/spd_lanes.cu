@@ -41,8 +41,7 @@
 //     cp.async copies in the global order, so a warp's copies are
 //     consecutive envs of one row (coalesced), and pads the tile's row
 //     and env strides so that the lanes reading their rows, or their
-//     columns, fall in distinct banks (the full-warp instance's
-//     substitute spills 12 bytes at n > 16, off the physics path);
+//     columns, fall in distinct banks;
 //   - factors right-looking in registers: in column step k the pivot lane
 //     broadcasts its raw pivot with __shfl_sync, every lane takes sqrtf
 //     and divides its own entry, and the rank-1 update of the trailing
@@ -50,18 +49,25 @@
 //     same fused multiply-adds in the same order as the column Cholesky
 //     of _chol_lanes_factor, so the factor is that of the first design
 //     bit for bit;
-//   - substitutes with row i and column i of L in lane i's registers
-//     (<= 64 floats): n shuffle steps forward, n back. The forward pass
-//     keeps the first design's order of operations; the back pass
-//     subtracts in descending column order (held to the same tolerance);
+//   - substitutes with lane i's row of L left of the diagonal and its
+//     column below it in one register array (<= 32 floats: the two meet
+//     only at the diagonal): n shuffle steps forward, n back. The forward
+//     pass keeps the first design's order of operations; the back pass
+//     subtracts in descending column order (held to the same tolerance).
+//     Two arrays, a row and a column, made the full-warp instance spill
+//     12 bytes (see the times below);
 //   - writes results back through the shared tile, coalesced.
 // n shuffle steps of a divide, a shuffle and an FMA replace n^3 / 6
 // global round trips. Measured on an H100 80GB HBM3 at its 700.00 W limit
 // (kernel_ab.py: profiler device time per call, n = 14, N = 1024): factor
 // 8.8 us (first design 36.2, torch.linalg.cholesky_ex 14.0), substitute
-// 7.2 us (14.6; torch.cholesky_solve 46.3), fused solve 12.2 us (36.1;
+// 7.4 us (7.1 with the two arrays below; first design 14.6;
+// torch.cholesky_solve 46.3), fused solve 12.0 us (36.1;
 // torch.linalg.solve 35.9). The same launches at n = 1 (launch, one
-// staging round trip, the store) take 1.9, 2.5 and 3.1 us. Staging the
+// staging round trip, the store) take 1.9, 2.5 and 3.1 us. At Anymal's
+// n = 18, N = 4000 (the full-warp instance, same card and limit):
+// factor 25.0 us (cholesky_ex 72.9), substitute 16.6 us (21.2 with the
+// two arrays; cholesky_solve 162), fused solve 32.2 us. Staging the
 // tile row by row to spare the index divisions measured slower.
 // Full-precision sqrtf and division: this file must not be built with
 // --use_fast_math.
@@ -157,23 +163,22 @@ __device__ __forceinline__ void factor_rows(float (&a)[G], int i, int n) {
   }
 }
 
-// x = L^-T L^-1 b for one env: lane i holds row[k] = L[i][k] (k <= i),
-// col[k] = L[k][i] (k >= i) and b_i; returns x_i.
+// x = L^-T L^-1 b for one env: lane i holds lc[k] = L[i][k] for k <= i
+// (its row) and L[k][i] for k >= i (its column), and b_i; returns x_i.
 template <int G>
-__device__ __forceinline__ float substitute_rows(const float (&row)[G],
-                                                 const float (&col)[G],
+__device__ __forceinline__ float substitute_rows(const float (&lc)[G],
                                                  float b, int i, int n) {
   float diag = 0.0f;
 #pragma unroll
   for (int k = 0; k < G; ++k)
-    if (k == i) diag = row[k];
+    if (k == i) diag = lc[k];
   float acc = b, y = 0.0f;
 #pragma unroll
   for (int k = 0; k < G; ++k) {
     if (k >= n) break;
     const float yk = __shfl_sync(FULL, acc / diag, k, G);
     if (i == k) y = yk;
-    if (i > k) acc = fmaf(-row[k], yk, acc);
+    if (i > k) acc = fmaf(-lc[k], yk, acc);
   }
   acc = y;
   float x = 0.0f;
@@ -182,7 +187,7 @@ __device__ __forceinline__ float substitute_rows(const float (&row)[G],
     if (k >= n) continue;
     const float xk = __shfl_sync(FULL, acc / diag, k, G);
     if (i == k) x = xk;
-    if (i < k) acc = fmaf(-col[k], xk, acc);
+    if (i < k) acc = fmaf(-lc[k], xk, acc);
   }
   return x;
 }
@@ -218,17 +223,17 @@ spd_factor_kernel(const float* __restrict__ At, float* __restrict__ Lt,
   });
 }
 
-// Lane i's row i and column i of L from a tile that holds Lt's (k, i)
-// layout: L[i][k] at (k, i), L[k][i] at (i, k).
+// Lane i's row of L left of the diagonal and its column below it (see
+// substitute_rows) from a tile that holds Lt's (k, i) layout: L[i][k] at
+// (k, i), L[k][i] at (i, k).
 template <int G>
 __device__ __forceinline__ void load_factor(const float* s, const Tile<G>& tile,
                                             int t, int i, int n,
-                                            float (&row)[G], float (&col)[G]) {
+                                            float (&lc)[G]) {
 #pragma unroll
   for (int k = 0; k < G; ++k) {
     const bool ok = i < n && k < n;
-    row[k] = ok && k <= i ? s[tile.at(t, k, i)] : 0.0f;
-    col[k] = ok && k >= i ? s[tile.at(t, i, k)] : 0.0f;
+    lc[k] = !ok ? 0.0f : k <= i ? s[tile.at(t, k, i)] : s[tile.at(t, i, k)];
   }
 }
 
@@ -252,10 +257,9 @@ spd_substitute_kernel(const float* __restrict__ Lt,
   cp_async_wait_all();
   __syncthreads();
   const int t = threadIdx.x / G, i = threadIdx.x % G;
-  float row[G], col[G];
-  load_factor<G>(s, tile, t, i, n, row, col);
-  const float x = substitute_rows<G>(row, col, i < n ? xs[t * G + i] : 0.0f,
-                                     i, n);
+  float lc[G];
+  load_factor<G>(s, tile, t, i, n, lc);
+  const float x = substitute_rows<G>(lc, i < n ? xs[t * G + i] : 0.0f, i, n);
   if (i < n) xs[t * G + i] = x;
   __syncthreads();
   store_rows<T>(xt + rhs, n, N, e0, [&](int t, int q) {
@@ -279,26 +283,23 @@ spd_solve_kernel(const float* __restrict__ At, const float* __restrict__ bt,
   cp_async_wait_all();
   __syncthreads();
   const int t = threadIdx.x / G, i = threadIdx.x % G;
-  float row[G], col[G];
+  float lc[G];
 #pragma unroll
   for (int j = 0; j < G; ++j)
-    row[j] = (i < n && j < n) ? s[tile.at(t, i, j)] : 0.0f;
-  factor_rows<G>(row, i, n);
-  // Lane i's row of L goes where it read its row of A, (i, k); lane k
-  // then reads L[k][i] at (k, i).
+    lc[j] = (i < n && j < n) ? s[tile.at(t, i, j)] : 0.0f;
+  factor_rows<G>(lc, i, n);
+  // Lane i's row of L goes where it read its row of A, (i, k); lane i
+  // then reads its column below the diagonal, L[k][i], at (k, i).
   if (i < n) {
 #pragma unroll
     for (int k = 0; k < G; ++k)
-      if (k < n) s[tile.at(t, i, k)] = k <= i ? row[k] : 0.0f;
+      if (k < n) s[tile.at(t, i, k)] = k <= i ? lc[k] : 0.0f;
   }
   __syncwarp();
 #pragma unroll
-  for (int k = 0; k < G; ++k) {
-    col[k] = (i < n && k < n && k >= i) ? s[tile.at(t, k, i)] : 0.0f;
-    if (k > i) row[k] = 0.0f;
-  }
-  const float x = substitute_rows<G>(row, col, i < n ? xs[t * G + i] : 0.0f,
-                                     i, n);
+  for (int k = 0; k < G; ++k)
+    if (k > i) lc[k] = (i < n && k < n) ? s[tile.at(t, k, i)] : 0.0f;
+  const float x = substitute_rows<G>(lc, i < n ? xs[t * G + i] : 0.0f, i, n);
   if (i < n) xs[t * G + i] = x;
   __syncthreads();
   store_rows<T>(xt, n, N, e0, [&](int t, int q) { return xs[t * G + q]; });

@@ -379,6 +379,14 @@ class DynParams(NamedTuple):
     restitution: torch.Tensor         # (ngeom,)
     scale: torch.Tensor               # () uniform geometry/length scale
 
+    def rows(self, n: int, **fields) -> "DynParams":
+        """A batch of ``n`` envs: every field with a leading N axis
+        (expanded views of single-env fields), ``fields`` replacing some of
+        them."""
+        out = {k: v.expand((n,) + v.shape) for k, v in self._asdict().items()}
+        out.update(fields)
+        return DynParams(**out)
+
     @staticmethod
     def defaults(model: ArticulatedModel, gravity=(0.0, 0.0, -9.81),
                  device="cpu"):

@@ -37,7 +37,7 @@ from ..physics import (
 )
 from ..physics.spatial import quat_to_rot
 from .render2d import draw_line
-from .task import Task
+from .task import Task, task_device
 
 LEG_DIRS = np.array([[1, 1], [-1, 1], [-1, -1], [1, -1]],
                     np.float64) / np.sqrt(2.0)
@@ -101,8 +101,8 @@ class Ant(Task):
     dt = 1.0 / 60.0
     substeps = 2
 
-    def __init__(self, cfg, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, cfg, device="cuda"):
+        self.device = task_device(device)
         env_cfg = cfg["env"]
         self.num_envs = int(env_cfg["numEnvs"])
         self.max_episode_length = int(env_cfg.get("episodeLength", 1000))
@@ -186,20 +186,11 @@ class Ant(Task):
         if self._damp_dims:
             damping = damping.clone()
             damping[:, self._act_v] += params[:, self._damp_cols]
-        inertia = base.inertia * (mass / base.mass)[:, :, None]
-        scale = base.scale.expand(n)
+        fields = dict(mass=mass, stiffness=stiffness, damping=damping,
+                      inertia=base.inertia * (mass / base.mass)[:, :, None])
         if self._scale_dims:
-            scale = params[:, self._scale_dims[0]]
-
-        def rows(x):
-            return x.expand((n,) + x.shape)
-        return DynParams(
-            mass=mass, com=rows(base.com), inertia=inertia,
-            stiffness=stiffness, damping=damping,
-            friction=rows(base.friction), armature=rows(base.armature),
-            gravity=rows(base.gravity),
-            contact_friction=rows(base.contact_friction),
-            restitution=rows(base.restitution), scale=scale)
+            fields["scale"] = params[:, self._scale_dims[0]]
+        return base.rows(n, **fields)
 
     def init_state(self, gen, params):
         n = params.shape[0]

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..dr import TaskNames, build_params_spec
-from .task import Task
+from .task import Task, task_device
 
 BODY_NAMES = ["slider", "cart", "pole"]
 DOF_NAMES = ["slider_to_cart", "cart_to_pole"]
@@ -48,8 +48,8 @@ class Cartpole(Task):
     dt = 1.0 / 60.0
     substeps = 2
 
-    def __init__(self, cfg, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, cfg, device="cuda"):
+        self.device = task_device(device)
         env_cfg = cfg["env"]
         self.num_envs = int(env_cfg["numEnvs"])
         self.max_episode_length = int(env_cfg.get("episodeLength", 500))

@@ -43,7 +43,7 @@ from ..physics import (
 )
 from ..physics.spatial import quat_to_rot
 from .render2d import draw_line
-from .task import Task
+from .task import Task, task_device
 
 START_Z = 1.34
 # Phantom connector links: collapsed out of the link-axis tensors at model
@@ -174,8 +174,8 @@ class Humanoid(Task):
     dt = 1.0 / 60.0
     substeps = 2
 
-    def __init__(self, cfg, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, cfg, device="cuda"):
+        self.device = task_device(device)
         env_cfg = cfg["env"]
         self.num_envs = int(env_cfg["numEnvs"])
         self.max_episode_length = int(env_cfg.get("episodeLength", 1000))
@@ -250,19 +250,10 @@ class Humanoid(Task):
             # Scaling operation: default (1.0) x sampled multiplier.
             stiffness = stiffness.clone()
             stiffness[:, self._act_v] = 1.0 * params[:, self._stiff_cols]
-        scale = base.scale.expand(n)
+        fields = dict(mass=mass, inertia=inertia, stiffness=stiffness)
         if self._scale_dims:
-            scale = params[:, self._scale_dims[0]]
-
-        def rows(x):
-            return x.expand((n,) + x.shape)
-        return DynParams(
-            mass=mass, com=rows(base.com), inertia=inertia,
-            stiffness=stiffness, damping=rows(base.damping),
-            friction=rows(base.friction), armature=rows(base.armature),
-            gravity=rows(base.gravity),
-            contact_friction=rows(base.contact_friction),
-            restitution=rows(base.restitution), scale=scale)
+            fields["scale"] = params[:, self._scale_dims[0]]
+        return base.rows(n, **fields)
 
     def init_state(self, gen, params):
         n = params.shape[0]

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..dr import TaskNames, build_params_spec
-from .task import Task
+from .task import Task, task_device
 
 
 class PendulumState(NamedTuple):
@@ -50,8 +50,8 @@ class Pendulum(Task):
     dt = 0.05
     gravity = 10.0
 
-    def __init__(self, cfg, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, cfg, device="cuda"):
+        self.device = task_device(device)
         env_cfg = cfg["env"]
         self.num_envs = int(env_cfg["numEnvs"])
         self.max_episode_length = int(env_cfg["episodeLength"])

@@ -15,48 +15,60 @@ Phases (each prints its lines; any failure raises and exits non-zero):
        (8-B and 4-B aligned bases), and at phases of ~500 rad against
        float64 under a d 2^-23 sum|x coeff| bound;
      - the SPD factor, substitute (K = 1 and K = 4), fused solve and the
-       solve's autograd backward (csrc/spd_lanes.cu) at (n, N) = (14,
-       1024) (Ant), (14, 1), (14, 4096), (30, 1024) and (5, 17), and at
-       odd n and env counts the lane groups must mask (1, 9), (13, 1027),
-       (16, 1029), (17, 9) and (32, 1027); the NaN-pivot policy (one
+       solve's autograd backward (csrc/spd_lanes.cu) at the ADR paths'
+       mass matrices (n, N) = (14, 1024) (Ant), (18, 4000) (Anymal, the
+       full-warp instance), (14, 8192) (Quadcopter), (10, 4096)
+       (Ingenuity) and (10, 2048) (FrankaCabinet), and at (14, 1),
+       (14, 4096), (30, 1024), (5, 17) and the odd n and env counts the
+       lane groups must mask (1, 9), (13, 1027), (16, 1029), (17, 9) and
+       (32, 1027); at each path shape the times against the plain
+       versions and the library yardsticks, each one PyTorch call on the
+       same systems env-first and contiguous (the permute excluded):
+       cholesky_ex for the factor, cholesky_solve for the substitute,
+       linalg.solve for the fused solve; and the NaN-pivot policy (one
        indefinite system: NaN in its env only, every other env bit for bit
-       the clean run, factor, substitute and fused solve); at (14, 1024)
-       the library yardsticks, each one PyTorch call on the same systems
-       env-first and contiguous (the permute excluded): cholesky_ex for
-       the factor, cholesky_solve for the substitute, linalg.solve for the
-       fused solve;
+       the clean run, factor, substitute and fused solve);
      - the tree L^T D L factor and substitute (csrc/tree_ltdl.cu) on
-       Humanoid's dof tree at N = 4096, 1 and 17, Ant's (nearly dense) at
-       1024 and a random 30-dof tree (numpy, seed 0) at 1024: the factor
-       against the right-looking plain factor, the substitute at K = 1 and
-       K = 4, factor + substitute against the plain dense Cholesky solve
-       of the same M, and the NaN-pivot policy (one indefinite env: NaN in
-       its env only, every other env bit for bit the clean run), also at
-       Ant's tree at 1025 envs, the random tree at 1027 and a 40-deep
-       chain (chains longer than the 16 lanes of an env) at 1027; at
-       (Humanoid, 4096) the times of both kernels against the path's plain
-       (left-looking) version, the dense yardstick of the pair (cholesky_ex + cholesky_solve on the same systems made dense,
-       env-first), and at Humanoid's and Ant's trees the tree-vs-dense
-       A/B: the two tree kernels against the two SPD kernels on the same
-       M made dense;
+       Humanoid's dof tree at N = 4096, 1 and 17, BallBalance's two-root
+       forest at 128 and 129, Ant's (nearly dense) tree at 1024 and 1025,
+       Anymal's at 4000, a random 30-dof tree (numpy, seed 0) at 1024 and
+       1027 and a 40-deep chain (chains longer than the 16 lanes of an
+       env) at 1027: the factor against the right-looking plain factor,
+       the substitute at K = 1 and K = 4, factor + substitute against the
+       plain dense Cholesky solve of the same M; the NaN-pivot policy on
+       Humanoid's tree and BallBalance's forest (one indefinite env: NaN
+       in its env only, every other env bit for bit the clean run); at
+       (Humanoid, 4096) and (BallBalance, 128) the times of both kernels
+       against the path's plain version and the dense yardstick of the
+       pair (cholesky_ex + cholesky_solve on the same systems made dense,
+       env-first); and at Humanoid's, BallBalance's, Anymal's and Ant's
+       trees the tree-vs-dense A/B: the two tree kernels against the two
+       SPD kernels on the same M made dense;
   4. the ADR loop on Ant at full width (1024 envs, 17 params,
      trainTrajLen 50, summary_corrdiff, MDNN [128, 128] x 10 components,
      PPO [256, 128, 64] with nsteps 16) for 2 ADR iterations through
-     ``bayes_sim_main.main``; checks that the SPD factor and substitute
-     kernels were launched, the posteriors are finite with 17 dims and
-     every model and env tensor is on the card; prints the seconds of
-     each iteration and of its phases;
+     ``bayes_sim_main.main`` (ADR_PHASES); checks that the SPD factor and
+     substitute kernels were launched and no other kernel, the posteriors
+     are finite with 17 dims and every model and env tensor is on the
+     card; prints the seconds of each iteration and of its phases;
   5. the ADR loop on Cartpole + MDRFF at full width (512 envs,
      summary_corrdiff features d = 302, 200 RFF features, 10 components
      over 13 params) for 2 ADR iterations; checks that rff_features was
      launched, and the same as phase 4;
   6. the ADR loop on Humanoid at full width (4096 envs, 37 params,
      trainTrajLen 50, summary_corrdiff, MDNN [128, 128] x 10 components,
-     PPO [400, 200, 100] elu with nsteps 32) for 2 ADR iterations; checks
-     that both tree kernels were launched and the dense SPD kernels were
-     not, and the same as phase 4;
+     PPO [400, 200, 100] elu with nsteps 32) for 2 ADR iterations
+     (ADR_PHASES); checks that both tree kernels were launched and no
+     other kernel, and the same as phase 4;
   7. the README quick start, Pendulum + MDNN with summary_start at full
-     width (100 envs), for 2 ADR iterations; it launches no kernel.
+     width (100 envs), for 2 ADR iterations; it launches no kernel;
+  8. the ADR loop on each of Anymal (4000 envs, 13 params), Quadcopter
+     (8192, 9), Ingenuity (4096, 9), BallBalance (128, 7) and
+     FrankaCabinet (2048, 19) at full width for 2 ADR iterations
+     (ADR_PHASES): checks the SPD factor and substitute kernels and no
+     tree kernel on the four dense tasks, the tree kernels and no SPD
+     kernel on BallBalance, and the same as phase 4; on Anymal also the
+     env step's wall and device time.
 Each ADR phase sets every kernel's launch count to 0 just before it runs
 and reads the counts just after. The line before the card's line is a
 JSON object with each kernel's numbers, its bound (ops/bounds.py: the
@@ -105,13 +117,21 @@ RFF_LARGE_PHASE = 500.0
 # The SPD kernels against their plain versions: float32 with sums in
 # another order, on systems A = M M^T + n I (condition number ~5).
 SPD_RTOL, SPD_ATOL = 1e-4, 1e-5
-# (n, N): Ant's mass matrix at its full width, one env, 4x the envs, the
-# widest nv the JAX package names (30), and a ragged toy shape.
-# Then n that leaves lanes of a half or full warp idle, and env counts
-# that leave a partial block (8 envs a block at n <= 16, 4 above).
-SPD_SHAPES = [(14, 1024), (14, 1), (14, 4096), (30, 1024), (5, 17),
-              (1, 9), (13, 1027), (16, 1029), (17, 9), (32, 1027)]
-SPD_TIMED = (14, 1024)
+# The mass matrices of the ADR paths at their full widths, timed with
+# their library yardsticks and held to the NaN-pivot policy: Ant's,
+# Anymal's (n 18: the full-warp instance), Quadcopter's, Ingenuity's and
+# FrankaCabinet's. SPD_MAIN's times are the kernels line's own.
+SPD_PATHS = {(14, 1024): "Ant", (18, 4000): "Anymal",
+             (14, 8192): "Quadcopter", (10, 4096): "Ingenuity",
+             (10, 2048): "FrankaCabinet"}
+SPD_MAIN = (14, 1024)
+# (n, N): the paths', one env, 4x Ant's envs, the widest nv the JAX
+# package names (30), and a ragged toy shape. Then n that leaves lanes of
+# a half or full warp idle, and env counts that leave a partial block (8
+# envs a block at n <= 16, 4 above).
+SPD_SHAPES = list(SPD_PATHS) + [
+    (14, 1), (14, 4096), (30, 1024), (5, 17), (1, 9), (13, 1027),
+    (16, 1029), (17, 9), (32, 1027)]
 SPD_RHS = 4  # K for the multi-right-hand-side substitute
 
 # The tree kernels against their plain versions: float32 with the same
@@ -119,16 +139,26 @@ SPD_RHS = 4  # K for the multi-right-hand-side substitute
 # (A = B B^T + nv I kept at the ancestor pairs, made diagonally dominant).
 TREE_RTOL, TREE_ATOL = 1e-4, 1e-5
 # (tree, N): Humanoid's at its full width, one env and a ragged count,
-# Ant's nearly dense tree at its width, a random 30-dof tree, then env
-# counts that leave a partial block (16 envs a block) and a chain 40 deep
-# (longer than an env's 16 lanes).
+# BallBalance's two-root forest (tray tree + free ball) at its width and
+# one env past it, Ant's nearly dense tree at its width, a random 30-dof
+# tree, then env counts that leave a partial block (16 envs a block) and a
+# chain 40 deep (longer than an env's 16 lanes).
 TREE_SHAPES = [("humanoid", 4096), ("humanoid", 1), ("humanoid", 17),
+               ("ball_balance", 128), ("ball_balance", 129),
                ("ant", 1024), ("random30", 1024), ("ant", 1025),
                ("random30", 1027), ("chain40", 1027)]
-TREE_TIMED = ("humanoid", 4096)
-# The tree-vs-dense A/B behind the 0.66 pick: Humanoid's tree (fill
-# 0.643) and Ant's (0.771), each at its path width.
-TREE_AB = [("humanoid", 4096), ("ant", 1024)]
+# The trees the ADR paths factor, timed: Humanoid's (the kernels line's
+# own times) and BallBalance's.
+TREE_PATHS = {("humanoid", 4096): "Humanoid",
+              ("ball_balance", 128): "BallBalance"}
+TREE_MAIN = ("humanoid", 4096)
+# The NaN-pivot policy on Humanoid's tree and on BallBalance's forest.
+TREE_NAN = [("humanoid", 4096), ("ball_balance", 128), ("ball_balance", 129)]
+# The tree-vs-dense A/B behind the 0.66 pick, each at its path width:
+# Humanoid's tree (fill 0.643), BallBalance's (0.509), Anymal's (0.684)
+# and Ant's (0.771).
+TREE_AB = [("humanoid", 4096), ("ball_balance", 128), ("anymal", 4000),
+           ("ant", 1024)]
 TREE_RHS = 4
 
 
@@ -218,9 +248,11 @@ def _fmt(v):
 
 
 def _times(kernel_fn, plain_fn):
+    # A plain version launches tens to thousands of kernels a call: its
+    # traces hold 5 calls, which keeps the profiler's own work short.
     return {"ms": _median_ms(kernel_fn), "plain_ms": _median_ms(plain_fn),
             "dev_ms": _device_ms(kernel_fn),
-            "plain_dev_ms": _device_ms(plain_fn)}
+            "plain_dev_ms": _device_ms(plain_fn, n=5)}
 
 
 def _library_times(fn):
@@ -393,6 +425,57 @@ def _spd_library(sk, At, bt, Lt):
             "solve": _library_times(lambda: torch.linalg.solve(A, b))}
 
 
+def _spd_nan_policy(sk, n, N):
+    """One negative-definite system (env 5) poisons only its own column;
+    every other env of the factor, substitute and fused solve is bit for
+    bit the clean result."""
+    At, bt = _spd_inputs(n, N, seed=n)
+    clean_L = sk.spd_factor_lanes_cuda(At)
+    clean = sk.spd_substitute_lanes_cuda(clean_L, bt)
+    clean_fused = sk.spd_solve_lanes_cuda(At, bt)
+    bad = At.clone()
+    bad[:, :, 5] = -torch.eye(n, device=At.device)
+    L = sk.spd_factor_lanes_cuda(bad)
+    x = sk.spd_substitute_lanes_cuda(L, bt)
+    fused = sk.spd_solve_lanes_cuda(bad, bt)
+    torch.cuda.synchronize()
+    others = torch.ones(N, dtype=torch.bool, device=At.device)
+    others[5] = False
+    ok = (bool(torch.isnan(x[:, 5]).all()) and bool(torch.isnan(
+        fused[:, 5]).all()) and torch.equal(x[:, others], clean[:, others])
+        and torch.equal(L[..., others], clean_L[..., others])
+        and torch.equal(fused[:, others], clean_fused[:, others]))
+    print(f"[kernel] spd NaN policy (n, N) = {(n, N)}: negative pivot in env"
+          f" 5 -> NaN in its column only, every other env of the factor, "
+          f"substitute and fused solve bit-equal to the clean run: "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        raise AssertionError(f"the SPD kernels break the NaN-pivot policy "
+                             f"at (n, N) = {(n, N)}")
+
+
+def _spd_path_times(sk, bounds, At, bt, Lp, n, N):
+    """At a path's shape: each entry point against its plain version, its
+    bound and its library yardstick."""
+    timed = {"factor": _times(lambda: sk.spd_factor_lanes_cuda(At),
+                              lambda: sk._chol_lanes_factor(At)),
+             "substitute": _times(
+                 lambda: sk.spd_substitute_lanes_cuda(Lp, bt),
+                 lambda: sk._chol_lanes_substitute(Lp, bt)),
+             "solve": _times(lambda: sk.spd_solve_lanes_cuda(At, bt),
+                             lambda: sk._chol_lanes_core(At, bt))}
+    library = _spd_library(sk, At, bt, Lp)
+    for entry, t in timed.items():
+        t["library"] = library[entry]
+        t["bound"] = getattr(bounds, f"spd_{entry}")(n, N)
+        print(f"[kernel] spd_{entry}_lanes (n, N) = {(n, N)} "
+              f"({SPD_PATHS[(n, N)]}'s path; {t['dev_ms'] * 1e3 / N:.5f} us"
+              f" a system): {_time_line(t)} | {_bound_line(t['bound'])} | "
+              f"library {_library_line(LIBRARY[entry], t['library'])}",
+              flush=True)
+    return timed
+
+
 def phase_spd_kernel():
     from bayes_sim_ig_tpu_torch.ops import bounds
     from bayes_sim_ig_tpu_torch.ops import spd_kernel as sk
@@ -430,49 +513,26 @@ def phase_spd_kernel():
             _check("spd_solve_lanes backward dA", A_g.grad,
                    -y[:, None, :] * x_plain[None, :, :], (n, N)),
             _check("spd_solve_lanes backward db", b_g.grad, y, (n, N)))
-        if (n, N) == SPD_TIMED:
-            timed["factor"] = _times(lambda: sk.spd_factor_lanes_cuda(At),
-                                     lambda: sk._chol_lanes_factor(At))
-            timed["substitute"] = _times(
-                lambda: sk.spd_substitute_lanes_cuda(Lp, bt),
-                lambda: sk._chol_lanes_substitute(Lp, bt))
-            timed["solve"] = _times(lambda: sk.spd_solve_lanes_cuda(At, bt),
-                                    lambda: sk._chol_lanes_core(At, bt))
-            library = _spd_library(sk, At, bt, Lp)
-            for entry, t in timed.items():
-                t["library"] = library[entry]
-                t["bound"] = getattr(bounds, f"spd_{entry}")(n, N)
-                print(f"[kernel] spd_{entry}_lanes (n, N) = {(n, N)}: "
-                      f"{_time_line(t)} | {_bound_line(t['bound'])} | "
-                      f"library {_library_line(LIBRARY[entry], t['library'])}",
-                      flush=True)
-    # NaN policy: one negative-definite system (env 5) poisons only its
-    # own column; every other env is bit for bit the clean result.
-    n, N = SPD_TIMED
-    At, bt = _spd_inputs(n, N, seed=n)
-    clean_L = sk.spd_factor_lanes_cuda(At)
-    clean = sk.spd_substitute_lanes_cuda(clean_L, bt)
-    clean_fused = sk.spd_solve_lanes_cuda(At, bt)
-    bad = At.clone()
-    bad[:, :, 5] = -torch.eye(n, device=At.device)
-    L = sk.spd_factor_lanes_cuda(bad)
-    x = sk.spd_substitute_lanes_cuda(L, bt)
-    fused = sk.spd_solve_lanes_cuda(bad, bt)
-    torch.cuda.synchronize()
-    others = torch.ones(N, dtype=torch.bool, device=At.device)
-    others[5] = False
-    ok = (bool(torch.isnan(x[:, 5]).all()) and bool(torch.isnan(
-        fused[:, 5]).all()) and torch.equal(x[:, others], clean[:, others])
-        and torch.equal(L[..., others], clean_L[..., others])
-        and torch.equal(fused[:, others], clean_fused[:, others]))
-    print(f"[kernel] spd NaN policy (n, N) = {(n, N)}: negative pivot in env"
-          f" 5 -> NaN in its column only, every other env of the factor, "
-          f"substitute and fused solve bit-equal to the clean run: "
-          f"{'ok' if ok else 'MISMATCH'}", flush=True)
-    if not ok:
-        raise AssertionError("the SPD kernels break the NaN-pivot policy")
-    return {entry: {"max_abs_err": worst[entry], **timed[entry]}
-            for entry in ("factor", "substitute", "solve")}
+        if (n, N) in SPD_PATHS:
+            timed[(n, N)] = _spd_path_times(sk, bounds, At, bt, Lp, n, N)
+    for n, N in SPD_PATHS:
+        _spd_nan_policy(sk, n, N)
+    out = {}
+    for entry in ("factor", "substitute", "solve"):
+        out[entry] = {"max_abs_err": worst[entry], **timed[SPD_MAIN][entry],
+                      "times": {f"n={n} N={N}": _time_entry(t[entry])
+                                for (n, N), t in timed.items()}}
+    return out
+
+
+def _time_entry(t):
+    """A timed shape's numbers for the kernels line."""
+    lib = t.get("library")
+    return {"ms": t["ms"], "plain_ms": t["plain_ms"], "dev_ms": t["dev_ms"],
+            "plain_dev_ms": t["plain_dev_ms"], "bound_ms": t["bound"].ms,
+            "bound_by": t["bound"].by,
+            "library_ms": None if lib is None else lib["ms"],
+            "library_dev_ms": None if lib is None else lib["dev_ms"]}
 
 
 def _random_chains(nv, seed):
@@ -488,11 +548,13 @@ def _random_chains(nv, seed):
 
 def _tree_chains(tree):
     from bayes_sim_ig_tpu_torch.sim.ant import build_ant_model
+    from bayes_sim_ig_tpu_torch.sim.anymal import build_anymal_model
+    from bayes_sim_ig_tpu_torch.sim.ball_balance import build_bbot_model
     from bayes_sim_ig_tpu_torch.sim.humanoid import build_humanoid_model
-    if tree == "humanoid":
-        return build_humanoid_model().dof_anc_chains
-    if tree == "ant":
-        return build_ant_model().dof_anc_chains
+    models = {"humanoid": build_humanoid_model, "ant": build_ant_model,
+              "anymal": build_anymal_model, "ball_balance": build_bbot_model}
+    if tree in models:
+        return models[tree]().dof_anc_chains
     if tree == "chain40":
         return [list(range(k - 1, -1, -1)) for k in range(40)]
     return _random_chains(30, 0)
@@ -537,13 +599,17 @@ def _tree_check(name, got, want, shape):
 
 
 def _tree_times(ts, chains, Mp, At, b, H, D, shape):
-    """At the path's shape: both kernels against the path's plain
-    (left-looking) version, the bounds, and the dense library yardstick
-    of the pair."""
+    """At a path's shape: both kernels against the path's plain version
+    (the left-looking form on deep trees, as forward_dynamics picks), the
+    bounds, and the dense library yardstick of the pair."""
     from bayes_sim_ig_tpu_torch.ops import bounds
+    from bayes_sim_ig_tpu_torch.physics.dynamics import (
+        TREE_LL_MIN_MEAN_DEPTH,
+    )
+    left = ts.tree_tables(chains).mean_depth >= TREE_LL_MIN_MEAN_DEPTH
     timed = {
         "factor": _times(lambda: ts.ltdl_factor_cuda(chains, Mp),
-                         lambda: ts.ltdl_factor_plain(chains, Mp, True)),
+                         lambda: ts.ltdl_factor_plain(chains, Mp, left)),
         "substitute": _times(
             lambda: ts.ltdl_substitute_cuda(chains, (H, D), b),
             lambda: ts.ltdl_substitute_plain(chains, (H, D), b))}
@@ -552,7 +618,8 @@ def _tree_times(ts, chains, Mp, At, b, H, D, shape):
     timed["substitute"]["bound"] = bounds.tree_substitute(chains, N)
     for entry in ("factor", "substitute"):
         print(f"[kernel] tree_ltdl_{entry} {shape} (plain: the path's "
-              f"left-looking form; {ts.GROUP} lanes an env): "
+              f"{'left' if left else 'right'}-looking form; {ts.GROUP} "
+              f"lanes an env): "
               f"{_time_line(timed[entry])} | "
               f"{_bound_line(timed[entry]['bound'])}", flush=True)
     # No single call computes a branch-sparse L^T D L: the yardstick of the
@@ -594,12 +661,42 @@ def _tree_vs_dense(ts, sk, chains, Mp, At, b, shape):
           f"{_fmt(t['dev_ms'])}, dense {_fmt(t['plain_dev_ms'])}", flush=True)
 
 
+def _tree_nan_policy(ts, tree, N):
+    """Env 5 negated (every pivot negative) is NaN in D and x only in its
+    own column, at the plain version's positions; every other env bit for
+    bit the clean run."""
+    chains = _tree_chains(tree)
+    Mp, _, b, _ = _tree_inputs(chains, N)
+    H, D = ts.ltdl_factor_cuda(chains, Mp)
+    clean = ts.ltdl_substitute_cuda(chains, (H, D), b)
+    bad = Mp.clone()
+    bad[:, 5] = -bad[:, 5]
+    Hb, Db = ts.ltdl_factor_cuda(chains, bad)
+    x = ts.ltdl_substitute_cuda(chains, (Hb, Db), b)
+    Dp = ts.ltdl_factor_plain(chains, bad)[1]
+    torch.cuda.synchronize()
+    others = torch.ones(N, dtype=torch.bool, device=Mp.device)
+    others[5] = False
+    ok = (bool(torch.isnan(Db[:, 5]).all()) and bool(torch.isnan(
+        x[:, 5]).all()) and torch.equal(torch.isnan(Db), torch.isnan(Dp))
+        and torch.equal(x[:, others], clean[:, others])
+        and torch.equal(Db[:, others], D[:, others])
+        and torch.equal(Hb[:, others], H[:, others]))
+    print(f"[kernel] tree NaN policy ({tree}, N {N}): indefinite env 5 -> "
+          f"NaN in its D and x only, NaN positions as the plain version's, "
+          f"other envs bit-equal: {'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        raise AssertionError(f"the tree kernels break the NaN-pivot policy "
+                             f"on {tree} at N {N}")
+
+
 def phase_tree_kernel():
     from bayes_sim_ig_tpu_torch.ops import spd_kernel as sk
     from bayes_sim_ig_tpu_torch.ops import tree_solve as ts
     worst = collections.defaultdict(float)
     timed = {}
-    for tree, N in TREE_SHAPES:
+    for tree, N in TREE_SHAPES + [s for s in TREE_AB if s not in
+                                  TREE_SHAPES]:
         chains = _tree_chains(tree)
         shape = f"({tree}: nv {len(chains)}, E {ts.tree_tables(chains).E}, " \
                 f"N {N})"
@@ -618,37 +715,23 @@ def phase_tree_kernel():
         worst["solve"] = max(worst["solve"], _tree_check(
             "tree_ltdl factor+substitute vs the dense Cholesky solve", x,
             sk._chol_lanes_core(At, b), shape))
-        if (tree, N) == TREE_TIMED:
-            timed = _tree_times(ts, chains, Mp, At, b, H, D, shape)
+        if (tree, N) in TREE_PATHS:
+            timed[(tree, N)] = _tree_times(ts, chains, Mp, At, b, H, D,
+                                           shape)
         if (tree, N) in TREE_AB:
             _tree_vs_dense(ts, sk, chains, Mp, At, b, shape)
-    # NaN policy: env 5 negated (every pivot negative) is NaN in D and x
-    # only in its own column; every other env bit for bit the clean run.
-    chains = _tree_chains(TREE_TIMED[0])
-    N = TREE_TIMED[1]
-    Mp, _, b, _ = _tree_inputs(chains, N)
-    H, D = ts.ltdl_factor_cuda(chains, Mp)
-    clean = ts.ltdl_substitute_cuda(chains, (H, D), b)
-    bad = Mp.clone()
-    bad[:, 5] = -bad[:, 5]
-    Hb, Db = ts.ltdl_factor_cuda(chains, bad)
-    x = ts.ltdl_substitute_cuda(chains, (Hb, Db), b)
-    Dp = ts.ltdl_factor_plain(chains, bad)[1]
-    torch.cuda.synchronize()
-    others = torch.ones(N, dtype=torch.bool, device=Mp.device)
-    others[5] = False
-    ok = (bool(torch.isnan(Db[:, 5]).all()) and bool(torch.isnan(
-        x[:, 5]).all()) and torch.equal(torch.isnan(Db), torch.isnan(Dp))
-        and torch.equal(x[:, others], clean[:, others])
-        and torch.equal(Db[:, others], D[:, others])
-        and torch.equal(Hb[:, others], H[:, others]))
-    print(f"[kernel] tree NaN policy (Humanoid, N {N}): indefinite env 5 -> "
-          f"NaN in its D and x only, NaN positions as the plain version's, "
-          f"other envs bit-equal: {'ok' if ok else 'MISMATCH'}", flush=True)
-    if not ok:
-        raise AssertionError("the tree kernels break the NaN-pivot policy")
-    return {entry: {"max_abs_err": worst[entry], **timed[entry]}
-            for entry in ("factor", "substitute")}
+    for tree, N in TREE_NAN:
+        _tree_nan_policy(ts, tree, N)
+    out = {}
+    for entry in ("factor", "substitute"):
+        main = timed[TREE_MAIN][entry]
+        out[entry] = {"max_abs_err": worst[entry], **main,
+                      "times": {f"{tree} N={N}": {
+                          **_time_entry(t[entry]),
+                          "dense_pair_ms": t[entry]["dense_pair"]["ms"],
+                          "dense_pair_dev_ms": t[entry]["dense_pair"][
+                              "dev_ms"]} for (tree, N), t in timed.items()}}
+    return out
 
 
 def _on_cuda(tensors, what):
@@ -754,36 +837,6 @@ def _run_adr(task, cfg, name):
     return out, launches, secs, timer
 
 
-def phase_adr_ant():
-    from bayes_sim_ig_tpu_torch.utils.args import load_config
-    cfg = load_config(os.path.join(HERE, "bayes_sim_ig_tpu_torch", "cfg",
-                                   "ant.yaml"))
-    cfg["bayessim"].update(trainTrajs=2048, realIters=2)
-    bs = cfg["bayessim"]
-    assert cfg["env"]["numEnvs"] == 1024 and bs["trainTrajLen"] == 50
-    assert bs["modelClass"] == "MDNN" and bs["components"] == 10
-    assert bs["hiddenLayers"] == [128, 128]
-    assert bs["summarizerFxn"] == "summary_corrdiff"
-    out, launches, secs, timer = _run_adr("Ant", cfg, "ant")
-    for entry in ("spd_factor_lanes", "spd_substitute_lanes"):
-        if launches[entry] <= 0:
-            raise AssertionError(f"the Ant ADR loop never launched {entry}")
-    net = out["bsim"].model.net
-    assert type(out["bsim"].model).__name__ == "MDNN"
-    assert [l.out_features for l in net.trunk] == [128, 128]
-    assert net.mu.out_features == 17 * 10
-    ppo = out["ppo"]
-    assert [l.out_features for l in ppo.net.actor][:3] == [256, 128, 64]
-    assert ppo.nsteps == 16 and ppo.activation == "elu"
-    assert out["env"].num_envs == 1024
-    print(f"[adr] Ant 1024 envs, 2 ADR iterations in {secs:.2f} s (per "
-          f"iteration: {', '.join(f'{s:.2f}' for s in out['iter_secs'])} s;"
-          f" phases: {timer.line()}); launches {launches}; 17-dim "
-          f"posteriors finite; model, refit, policy and env tensors on cuda",
-          flush=True)
-    return launches
-
-
 def phase_adr_cartpole():
     from bayes_sim_ig_tpu_torch.utils.args import load_config
     cfg = load_config(os.path.join(HERE, "bayes_sim_ig_tpu_torch", "cfg",
@@ -806,46 +859,6 @@ def phase_adr_cartpole():
           f"{', '.join(f'{s:.2f}' for s in out['iter_secs'])} s; phases: "
           f"{timer.line()}); launches {launches}; posteriors finite; model, "
           f"refit, policy and env tensors on cuda", flush=True)
-    return launches
-
-
-def phase_adr_humanoid():
-    """Humanoid at full width (cfg/humanoid.yaml: 4096 envs, 37 params,
-    trainTrajLen 50, summary_corrdiff, MDNN [128, 128] x 10 components;
-    cfg/train/ppo_humanoid.yaml: PPO [400, 200, 100] elu, nsteps 32), cut
-    in depth only: trainTrajs 4096 (of 10000), realIters 2 (of 100), and
-    5 PPO iterations per ADR iteration."""
-    from bayes_sim_ig_tpu_torch.utils.args import load_config
-    cfg = load_config(os.path.join(HERE, "bayes_sim_ig_tpu_torch", "cfg",
-                                   "humanoid.yaml"))
-    cfg["bayessim"].update(trainTrajs=4096, realIters=2)
-    bs = cfg["bayessim"]
-    assert cfg["env"]["numEnvs"] == 4096 and bs["trainTrajLen"] == 50
-    assert bs["modelClass"] == "MDNN" and bs["components"] == 10
-    assert bs["hiddenLayers"] == [128, 128]
-    assert bs["summarizerFxn"] == "summary_corrdiff"
-    out, launches, secs, timer = _run_adr("Humanoid", cfg, "humanoid")
-    for entry in ("tree_ltdl_factor", "tree_ltdl_substitute"):
-        if launches[entry] <= 0:
-            raise AssertionError(f"the Humanoid ADR loop never launched "
-                                 f"{entry}")
-    for entry in ("spd_factor_lanes", "spd_substitute_lanes"):
-        if launches[entry] != 0:
-            raise AssertionError(f"the Humanoid ADR loop launched the dense "
-                                 f"{entry}")
-    net = out["bsim"].model.net
-    assert type(out["bsim"].model).__name__ == "MDNN"
-    assert [l.out_features for l in net.trunk] == [128, 128]
-    assert net.mu.out_features == 37 * 10
-    ppo = out["ppo"]
-    assert [l.out_features for l in ppo.net.actor][:3] == [400, 200, 100]
-    assert ppo.nsteps == 32 and ppo.activation == "elu"
-    assert out["env"].num_envs == 4096
-    print(f"[adr] Humanoid 4096 envs, 2 ADR iterations in {secs:.2f} s (per "
-          f"iteration: {', '.join(f'{s:.2f}' for s in out['iter_secs'])} s;"
-          f" phases: {timer.line()}); launches {launches}; 37-dim "
-          f"posteriors finite; model, refit, policy and env tensors on cuda",
-          flush=True)
     return launches
 
 
@@ -876,16 +889,114 @@ def phase_adr_pendulum():
           flush=True)
 
 
+def _env_step_profile(env, steps=20):
+    """One env step at the phase's width with zero actions: wall ms per step
+    (host clock, synchronized), device ms per step (torch.profiler, the
+    largest of three traces) and the device's busy share of the wall."""
+    act = torch.zeros(env.num_envs, env.task.act_dim, device="cuda:0")
+    for _ in range(3):
+        env.step(act)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        env.step(act)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    dev = _device_ms(lambda: env.step(act), n=steps)
+    return {"wall_ms": wall, "dev_ms": dev,
+            "busy": None if dev is None else dev / wall}
+
+
+# The ADR phases of the articulated tasks: (task, config stem, numEnvs, DR
+# dims, PPO widths, nsteps, trainTrajLen, summarizer, the kernels its
+# physics launches, trainTrajs after the cut, env edits). Each runs through
+# bayes_sim_main.main at the config's widths for 2 ADR iterations of 5 PPO
+# iterations; trainTrajs is cut to 1000 (Ant, Humanoid: one collection
+# round), 2000 or 512 (BallBalance, with 128 envs), and a surrogate-real
+# episode longer than 1000 steps to 1000 (Anymal: episodeLength_s 50 ->
+# 1000/60; Ingenuity: maxEpisodeLength 2000 -> 1000).
+_SPD = ("spd_factor_lanes", "spd_substitute_lanes")
+_TREE = ("tree_ltdl_factor", "tree_ltdl_substitute")
+ADR_PHASES = [
+    ("Ant", "ant", 1024, 17, [256, 128, 64], 16, 50,
+     "summary_corrdiff", _SPD, 1000, {}),
+    ("Humanoid", "humanoid", 4096, 37, [400, 200, 100], 32, 50,
+     "summary_corrdiff", _TREE, 1000, {}),
+    ("Anymal", "anymal", 4000, 13, [256, 128, 64], 24, 50,
+     "summary_corrdiff", _SPD, 2000, {"episodeLength_s": 1000 / 60}),
+    ("Quadcopter", "quadcopter", 8192, 9, [256, 128, 64], 16, 10,
+     "summary_start", _SPD, 2000, {}),
+    ("Ingenuity", "ingenuity", 4096, 9, [256, 128, 64], 16, 10,
+     "summary_start", _SPD, 2000, {"maxEpisodeLength": 1000}),
+    ("BallBalance", "ball_balance", 128, 7, [128, 64, 32], 16, 20,
+     "summary_corrdiff", _TREE, 512, {}),
+    ("FrankaCabinet", "franka_cabinet", 2048, 19, [256, 128, 64], 16, 30,
+     "summary_corrdiff", _SPD, 2000, {}),
+]
+
+
+def phase_adr(task, stem, envs, dim, widths, nsteps, traj_len, summarizer,
+              kernels, train_trajs, env_edits):
+    """One of ADR_PHASES at full width (cfg/<stem>.yaml and
+    cfg/train/ppo_<stem>.yaml), cut in depth only (see ADR_PHASES): checks
+    the widths, that its physics launched exactly the kernels of its solve
+    (the SPD factor and substitute on the dense path, the tree kernels on
+    Humanoid's tree and BallBalance's forest) and no other, the posteriors
+    and the card."""
+    from bayes_sim_ig_tpu_torch.utils.args import load_config
+    cfg = load_config(os.path.join(HERE, "bayes_sim_ig_tpu_torch", "cfg",
+                                   f"{stem}.yaml"))
+    cfg["bayessim"].update(trainTrajs=train_trajs, realIters=2)
+    cfg["env"].update(env_edits)
+    bs = cfg["bayessim"]
+    assert cfg["env"]["numEnvs"] == envs and bs["trainTrajLen"] == traj_len
+    assert bs["modelClass"] == "MDNN" and bs["components"] == 10
+    assert bs["hiddenLayers"] == [128, 128]
+    assert bs["summarizerFxn"] == summarizer
+    out, launches, secs, timer = _run_adr(task, cfg, stem)
+    others = [k for k in launches if k not in kernels]
+    for entry in kernels:
+        if launches[entry] <= 0:
+            raise AssertionError(f"the {task} ADR loop never launched "
+                                 f"{entry}")
+    for entry in others:
+        if launches[entry] != 0:
+            raise AssertionError(f"the {task} ADR loop launched {entry}")
+    env = out["env"]
+    assert env.num_envs == envs and env.task.params_spec.dim == dim
+    assert env.task.max_episode_length <= 1000
+    net = out["bsim"].model.net
+    assert type(out["bsim"].model).__name__ == "MDNN"
+    assert [l.out_features for l in net.trunk] == [128, 128]
+    assert net.mu.out_features == dim * 10
+    ppo = out["ppo"]
+    assert [l.out_features for l in ppo.net.actor][:3] == widths
+    assert ppo.nsteps == nsteps and ppo.activation == "elu"
+    step = _env_step_profile(env) if task == "Anymal" else None
+    print(f"[adr] {task} {envs} envs, nv {env.task.model.nv}, 2 ADR "
+          f"iterations in {secs:.2f} s (per iteration: "
+          f"{', '.join(f'{s:.2f}' for s in out['iter_secs'])} s; phases: "
+          f"{timer.line()}); launches {launches}; {dim}-dim posteriors "
+          f"finite; model, refit, policy and env tensors on cuda"
+          + ("" if step is None else
+             f"; env step {step['wall_ms']:.2f} ms wall, device "
+             f"{_fmt(step['dev_ms'])} (busy share {step['busy']:.3f})"),
+          flush=True)
+    return launches
+
+
 def _kernel_entry(name, source, replaces, launches, t, library_call=None,
                   **extra):
-    """One kernel's object of the kernels line. ``library_ms`` is the
-    time of the one PyTorch call computing the same function (null where
-    there is none); ``dense_pair_ms`` (tree kernels) is the dense
-    factor + solve yardstick of the pair, not a library version of one
-    kernel."""
+    """One kernel's object of the kernels line. ``launches`` is the sum
+    over the ADR phases of {task: count} (``launches_by_task``, each read
+    after its own phase). ``library_ms`` is the time of the one PyTorch
+    call computing the same function (null where there is none);
+    ``dense_pair_ms`` (tree kernels) is the dense factor + solve
+    yardstick of the pair, not a library version of one kernel."""
     lib = t.get("library")
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces, "launches": sum(launches.values()),
+            "launches_by_task": launches,
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "dev_ms": t["dev_ms"],
             "plain_dev_ms": t["plain_dev_ms"], "bound_ms": t["bound"].ms,
@@ -901,20 +1012,26 @@ def main():
     rff = phase_rff_kernel()
     spd = phase_spd_kernel()
     tree = phase_tree_kernel()
-    ant = phase_adr_ant()
-    cartpole = phase_adr_cartpole()
-    humanoid = phase_adr_humanoid()
+    ant, humanoid, *rest = ADR_PHASES
+    runs = {"Ant": phase_adr(*ant), "Cartpole": phase_adr_cartpole(),
+            "Humanoid": phase_adr(*humanoid)}
     phase_adr_pendulum()
+    for spec in rest:
+        runs[spec[0]] = phase_adr(*spec)
+
+    def by_task(kernel):
+        return {task: c[kernel] for task, c in runs.items() if c[kernel]}
     kernels = [_kernel_entry(
         "rff_features", "bayes_sim_ig_tpu_torch/csrc/rff_features.cu",
-        "bayes_sim_ig_tpu/ops/rff_kernel.py:50", cartpole["rff_features"],
+        "bayes_sim_ig_tpu/ops/rff_kernel.py:50", by_task("rff_features"),
         rff, times=rff["times"])]
     for entry in ("factor", "substitute"):
+        t = spd[entry]
         kernels.append(_kernel_entry(
             f"spd_{entry}_lanes", "bayes_sim_ig_tpu_torch/csrc/spd_lanes.cu",
             "bayes_sim_ig_tpu/ops/spd_kernel.py:143",
-            ant[f"spd_{entry}_lanes"], spd[entry],
-            library_call=LIBRARY[entry]))
+            by_task(f"spd_{entry}_lanes"), t, library_call=LIBRARY[entry],
+            times=t["times"]))
     # The factor kernel replaces both forms of the JAX factor (:50, :76);
     # Humanoid's path there takes the left-looking one.
     for entry, replaces in (
@@ -923,9 +1040,9 @@ def main():
         t = tree[entry]
         kernels.append(_kernel_entry(
             f"tree_ltdl_{entry}", "bayes_sim_ig_tpu_torch/csrc/tree_ltdl.cu",
-            replaces, humanoid[f"tree_ltdl_{entry}"], t,
+            replaces, by_task(f"tree_ltdl_{entry}"), t,
             dense_pair_ms=t["dense_pair"]["ms"],
-            dense_pair_dev_ms=t["dense_pair"]["dev_ms"]))
+            dense_pair_dev_ms=t["dense_pair"]["dev_ms"], times=t["times"]))
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {smi}")
     print(json.dumps({"ok": True, "device": {

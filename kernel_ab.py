@@ -10,7 +10,8 @@ The old sources must expose the one-thread-per-env C interface (the SPD
 entries as today; the tree entries take the table [parent (nv), off
 (nv + 1)]). They are built with ``ops/build.py``'s flags into the same
 directory and loaded with ctypes beside the current kernels. At each
-path shape (SPD at (14, 1024), Ant's mass matrix; the tree kernels at
+path shape (SPD at ``SPD_AB``: (14, 1024), Ant's mass matrix, and
+(18, 4000), Anymal's on the full-warp instance; the tree kernels at
 Humanoid's tree and 4096 envs, and at Ant's tree and 1024 envs) the old
 and new kernels are timed in turns (old, new, new, old), each time the
 median of 50 calls with CUDA events and the device time per call from
@@ -37,6 +38,7 @@ from bayes_sim_ig_tpu_torch.ops import bounds, build, spd_kernel as sk
 from bayes_sim_ig_tpu_torch.ops import tree_solve as ts
 
 OUT = os.path.join(cs.HERE, "chiprun_out", "kernel_ab.json")
+SPD_AB = [(14, 1024), (18, 4000)]
 
 
 def _build_old(old_dir, name):
@@ -111,8 +113,7 @@ def _close(what, got, want):
                              f"abs err {float((got - want).abs().max())}")
 
 
-def spd_ab(old):
-    n, N = cs.SPD_TIMED
+def spd_ab(old, n, N):
     At, bt = cs._spd_inputs(n, N, seed=n)
     Lp = sk._chol_lanes_factor(At)
     A = At.permute(2, 0, 1).contiguous()
@@ -270,7 +271,8 @@ def main(argv):
         raise SystemExit(__doc__)
     smi = cs.phase_device()
     old_spd, old_tree = _old_fns(argv[0])
-    out = {"card": smi, "spd": spd_ab(old_spd),
+    out = {"card": smi,
+           "spd": {f"n={n} N={N}": spd_ab(old_spd, n, N) for n, N in SPD_AB},
            "tree_humanoid": tree_ab(old_tree, "humanoid", 4096),
            "tree_ant": tree_ab(old_tree, "ant", 1024), "floors": floors()}
     os.makedirs(os.path.dirname(OUT), exist_ok=True)

@@ -48,7 +48,7 @@ def test_config_copies_match_the_jax_package():
 
 def test_spec_matches_jax_and_realparams():
     cfg = _cfg(4)
-    spec = Ant(cfg).params_spec
+    spec = Ant(cfg, device="cpu").params_spec
     jspec = JaxAnt(cfg).params_spec
     assert spec.names == jspec.names
     np.testing.assert_array_equal(spec.lows, jspec.lows)
@@ -59,7 +59,7 @@ def test_spec_matches_jax_and_realparams():
 def test_physics_obs_and_reward_match_jax_over_5_steps():
     n = 6
     cfg = _cfg(n)
-    jt, tt = JaxAnt(cfg), Ant(cfg)
+    jt, tt = JaxAnt(cfg), Ant(cfg, device="cpu")
     rs = np.random.RandomState(0)
     spec = tt.params_spec
     params = rs.uniform(spec.lows, spec.highs, (n, spec.dim)).astype(
@@ -90,7 +90,7 @@ def test_physics_obs_and_reward_match_jax_over_5_steps():
 
 
 def test_init_state_bounds():
-    task = Ant(_cfg(64))
+    task = Ant(_cfg(64), device="cpu")
     gen = torch.Generator().manual_seed(0)
     st = task.init_state(gen, torch.zeros(64, 17))
     q0 = torch.as_tensor(task.model.neutral_q(), dtype=torch.float32)
@@ -102,7 +102,7 @@ def test_init_state_bounds():
 
 
 def test_flat_sample_consumed_fully():
-    t = Ant(_cfg(4))
+    t = Ant(_cfg(4), device="cpu")
     bound = set(t._mass_dims) | set(t._stiff_dims) | set(t._damp_dims)
     assert bound == set(range(t.params_spec.dim))
 
@@ -111,7 +111,7 @@ def test_corner_params_stay_finite():
     """The worst DR corner (all lows: 0.01x masses) for 80 steps of random
     actions with 2 envs: finite via the velocity clamps and, as a last
     resort, the non-finite quarantine of env_step."""
-    env = make_env("Ant", _cfg(2))
+    env = make_env("Ant", _cfg(2), device="cpu")
     spec = env.task.params_spec
     env.set_distr(to_device_distr(
         MoG(a=[1.0], ms=[np.asarray(spec.lows, np.float64)],
@@ -129,7 +129,7 @@ def test_nan_pivot_env_is_quarantined_and_reset():
     its first Cholesky pivot is NaN, so only its state goes non-finite;
     env_step ends its episode with zeroed obs and reward, and resets it
     next."""
-    env = make_env("Ant", _cfg(3), seed=2)
+    env = make_env("Ant", _cfg(3), seed=2, device="cpu")
     spec = env.task.params_spec
     env.set_distr(to_device_distr(Uniform(spec.lows, spec.highs)))
     env.reset()
@@ -149,7 +149,7 @@ def test_nan_pivot_env_is_quarantined_and_reset():
 
 
 def test_render_obs_frame():
-    env = make_env("Ant", _cfg(2))
+    env = make_env("Ant", _cfg(2), device="cpu")
     spec = env.task.params_spec
     env.set_distr(to_device_distr(Uniform(spec.lows, spec.highs)))
     obs = env.reset()

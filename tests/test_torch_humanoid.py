@@ -58,7 +58,7 @@ def _cfg(num_envs=N):
 
 def _tasks():
     cfg = _cfg()
-    return JaxHumanoid(cfg), Humanoid(cfg)
+    return JaxHumanoid(cfg), Humanoid(cfg, device="cpu")
 
 
 def _scaled_close(got, want, rel=1e-4):
@@ -239,7 +239,7 @@ def test_physics_obs_and_reward_match_jax_over_5_steps():
 def test_fresh_factor_on_every_substep(monkeypatch):
     """Humanoid refactors on each of its 2 substeps: forcing the frozen
     scheme changes the step, so the default really was fresh."""
-    tt = Humanoid(_cfg())
+    tt = Humanoid(_cfg(), device="cpu")
     params, q, v, rs = _state(tt, 4)
     st = HumanoidState(torch.from_numpy(q), torch.from_numpy(v))
     tp = torch.from_numpy(params)
@@ -253,7 +253,7 @@ def test_fresh_factor_on_every_substep(monkeypatch):
 
 
 def test_init_state_bounds():
-    task = Humanoid(_cfg(64))
+    task = Humanoid(_cfg(64), device="cpu")
     gen = torch.Generator().manual_seed(0)
     st = task.init_state(gen, torch.ones(64, 37))
     q0 = torch.as_tensor(task.model.neutral_q(), dtype=torch.float32)
@@ -269,7 +269,7 @@ def test_corner_params_stay_finite():
     """The DR corner of all lows (0.1x masses, 0.01x stiffness) for 40
     steps of random actions: finite through the velocity clamps and the
     non-finite quarantine."""
-    env = make_env("Humanoid", _cfg(2))
+    env = make_env("Humanoid", _cfg(2), device="cpu")
     spec = env.task.params_spec
     env.set_distr(to_device_distr(
         MoG(a=[1.0], ms=[np.asarray(spec.lows, np.float64)],
@@ -286,7 +286,7 @@ def test_nan_pivot_env_is_quarantined_and_reset():
     """Negative body masses make env 1's mass matrix negative definite:
     its tree pivots are NaN, so only its state goes non-finite; env_step
     ends its episode with zeroed obs and reward, and resets it next."""
-    env = make_env("Humanoid", _cfg(3), seed=2)
+    env = make_env("Humanoid", _cfg(3), seed=2, device="cpu")
     spec = env.task.params_spec
     env.set_distr(to_device_distr(Uniform(spec.lows, spec.highs)))
     env.reset()
@@ -306,7 +306,7 @@ def test_nan_pivot_env_is_quarantined_and_reset():
 
 
 def test_render_obs_frame():
-    env = make_env("Humanoid", _cfg(2))
+    env = make_env("Humanoid", _cfg(2), device="cpu")
     spec = env.task.params_spec
     env.set_distr(to_device_distr(Uniform(spec.lows, spec.highs)))
     obs = env.reset()

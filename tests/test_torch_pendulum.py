@@ -50,11 +50,12 @@ def test_config_copies_match_the_jax_package():
 
 def test_spec_matches_jax():
     cfg = pendulum_cfg()
-    spec, jspec = Pendulum(cfg).params_spec, JaxPendulum(cfg).params_spec
+    spec = Pendulum(cfg, device="cpu").params_spec
+    jspec = JaxPendulum(cfg).params_spec
     assert spec.names == jspec.names
     np.testing.assert_array_equal(spec.lows, jspec.lows)
     np.testing.assert_array_equal(spec.highs, jspec.highs)
-    t = Pendulum(cfg)
+    t = Pendulum(cfg, device="cpu")
     assert (t._mass_dim, t._length_dim) == (JaxPendulum(cfg)._mass_dim,
                                             JaxPendulum(cfg)._length_dim)
 
@@ -64,7 +65,7 @@ def test_trajectories_match_jax_step_for_step():
     steps: state, obs and the pre-step reward at every step, and the
     first step against the numpy oracle."""
     cfg = pendulum_cfg()
-    jt, tt = JaxPendulum(cfg), Pendulum(cfg)
+    jt, tt = JaxPendulum(cfg), Pendulum(cfg, device="cpu")
     rs = np.random.RandomState(0)
     n = tt.num_envs
     params = np.stack([rs.uniform(0.1, 2.0, n), rs.uniform(0.1, 2.0, n)],
@@ -100,7 +101,8 @@ def test_trajectories_match_jax_step_for_step():
 def test_init_state_and_env_semantics():
     """Reset draws th ~ U[-pi, pi], thdot ~ U[-1, 1]; the reward is the
     pre-step state's; done on the last step of an episode."""
-    env = make_env("Pendulum", pendulum_cfg(num_envs=256, episode_len=11))
+    env = make_env("Pendulum", pendulum_cfg(num_envs=256, episode_len=11),
+                   device="cpu")
     spec = env.task.params_spec
     env.set_distr(to_device_distr(Uniform(spec.lows, spec.highs)))
     obs = env.reset()
@@ -117,7 +119,7 @@ def test_init_state_and_env_semantics():
 
 
 def test_get_img_and_render_match_jax():
-    env = make_env("Pendulum", pendulum_cfg())
+    env = make_env("Pendulum", pendulum_cfg(), device="cpu")
     spec = env.task.params_spec
     env.set_distr(to_device_distr(Uniform(spec.lows, spec.highs)))
     obs = env.reset()
@@ -149,7 +151,7 @@ def test_mdnn_golden_gate_median_over_seeds():
 
 
 def _ppo_gain(seed, tmp_path):
-    env = make_env("Pendulum", pendulum_cfg(64, 100), seed=seed)
+    env = make_env("Pendulum", pendulum_cfg(64, 100), seed=seed, device="cpu")
     spec = env.task.params_spec
     env.set_distr(to_device_distr(
         MoG(a=[1.0], ms=[np.ones(2)], Ss=[np.eye(2) * 1e-10]),

@@ -13,6 +13,8 @@ than compiling the whole Ant step. Tolerances: float32 on both sides with
 sums in another order; kinematics and inertias atol 1e-5 (values O(1-10)),
 forces and accelerations rtol 1e-4 / atol 1e-4."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -307,7 +309,7 @@ def test_frozen_vs_fresh_single_step(monkeypatch):
                            "bayes_sim_ig_tpu_torch", "cfg", "ant.yaml")) as f:
         cfg = yaml.safe_load(f)
     cfg["env"]["numEnvs"] = 8
-    task = make_env("Ant", cfg).task
+    task = make_env("Ant", cfg, device="cpu").task
     spec = task.params_spec
     gen = torch.Generator().manual_seed(0)
     lows, highs = _t(spec.lows), _t(spec.highs)
@@ -428,3 +430,223 @@ def test_phantom_chain_kinematics_match_jax():
         _close(getattr(got, name), getattr(want, name), KIN)
     _close(ground_contact_forces(tm, got, tp),
            jax_ground_contact_forces(jm, want, jp), FORCE)
+
+
+# ------------------------------------------------------------------ #
+# The models of Anymal, Quadcopter, Ingenuity, BallBalance and
+# FrankaCabinet: one and two free roots, fixed roots, prismatic joints.
+# ------------------------------------------------------------------ #
+def _task_models():
+    import yaml
+    from bayes_sim_ig_tpu.sim import anymal, ball_balance, flyers
+    from bayes_sim_ig_tpu.sim import franka_cabinet
+    from bayes_sim_ig_tpu_torch.sim import anymal as t_anymal
+    from bayes_sim_ig_tpu_torch.sim import ball_balance as t_ball_balance
+    from bayes_sim_ig_tpu_torch.sim import flyers as t_flyers
+    from bayes_sim_ig_tpu_torch.sim import franka_cabinet as t_franka
+
+    def flyer(name):
+        with open(os.path.join(os.path.dirname(__file__), "..",
+                               "bayes_sim_ig_tpu_torch", "cfg",
+                               f"{name.lower()}.yaml")) as f:
+            cfg = yaml.safe_load(f)
+        return (getattr(flyers, name)(cfg).model,
+                getattr(t_flyers, name)(cfg, device="cpu").model)
+    return {
+        "anymal": (anymal.build_anymal_model(),
+                   t_anymal.build_anymal_model()),
+        "quadcopter": flyer("Quadcopter"),
+        "ingenuity": flyer("Ingenuity"),
+        "ball_balance": (ball_balance.build_bbot_model(),
+                         t_ball_balance.build_bbot_model()),
+        "franka_cabinet": (franka_cabinet.build_model(),
+                           t_franka.build_model()),
+    }
+
+
+TASK_MODELS = _task_models()
+
+
+def _model_state(jm, tm, seed, n=N):
+    """Random q (free roots: positions and unit quaternions; 1-dof joints
+    within +-0.5), v, tau, and per-env masses/inertias (0.5-2x) and
+    geometry scales, as JAX's DynParams and the port's."""
+    rs = np.random.RandomState(seed)
+    q = np.tile(tm.neutral_q(), (n, 1))
+    for (_, qi, _) in tm.free_list:
+        q[:, qi:qi + 3] = rs.uniform(-0.5, 0.5, (n, 3))
+        quat = rs.randn(n, 4)
+        q[:, qi + 3:qi + 7] = quat / np.linalg.norm(quat, axis=1,
+                                                    keepdims=True)
+    q[:, tm.j1_q] = rs.uniform(-0.5, 0.5, (n, tm.j1_q.size))
+    v = rs.uniform(-0.5, 0.5, (n, tm.nv))
+    tau = rs.uniform(-2.0, 2.0, (n, tm.nv))
+    base = JaxDynParams.defaults(jm)
+    mult = rs.uniform(0.5, 2.0, (n, tm.nb))
+
+    def rows(x):
+        x = np.asarray(x)
+        return _j(np.broadcast_to(x, (n,) + x.shape))
+    jp = JaxDynParams(
+        mass=_j(np.asarray(base.mass) * mult), com=rows(base.com),
+        inertia=_j(np.asarray(base.inertia) * mult[:, :, None]),
+        stiffness=rows(base.stiffness), damping=rows(base.damping),
+        friction=_j(rs.uniform(0.0, 0.2, (n, tm.nv))),
+        armature=rows(base.armature), gravity=rows(base.gravity),
+        contact_friction=rows(base.contact_friction),
+        restitution=rows(base.restitution),
+        scale=_j(rs.uniform(0.9, 1.1, n)))
+    return (q.astype(np.float32), v.astype(np.float32),
+            tau.astype(np.float32), jp, dynparams_from_jax(jp))
+
+
+@pytest.mark.parametrize("name", list(TASK_MODELS))
+def test_task_model_tables_kinematics_and_mass_matrix_match_jax(name):
+    """Static tables, forward kinematics and the CRBA mass matrix (the
+    oracle API: body-frame inertias -> Plücker -> CRBA) on each model."""
+    jm, tm = TASK_MODELS[name]
+    assert (tm.nq, tm.nv, tm.nb) == (jm.nq, jm.nv, jm.nb)
+    assert tm.free_list == jm.free_list
+    assert tm.dof_anc_chains == jm.dof_anc_chains
+    for attr in ("anc_dof", "crba_mask", "dof_vd_mask", "j1_q", "j1_v",
+                 "j1_rev", "joint_rot_T", "parent_pad", "mass0",
+                 "inertia0"):
+        np.testing.assert_array_equal(getattr(tm, attr), getattr(jm, attr),
+                                      err_msg=attr)
+    q, v, _, jp, tp = _model_state(jm, tm, 20)
+    jkin = jdyn.forward_kinematics(jm, _j(q), _j(v), jp)
+    tkin = forward_kinematics(tm, _t(q), _t(v), tp)
+    for field in jkin._fields:
+        _close(getattr(tkin, field), getattr(jkin, field), KIN)
+    jI, tI = jdyn._link_inertias(jm, jp), tdyn._link_inertias(tm, tp)
+    M = mass_matrix(tm, tkin, tI)
+    _close(M, jdyn.mass_matrix(jm, jkin, jI), FORCE)
+    assert (np.linalg.eigvalsh(M.double().numpy()) > 0).all()
+
+
+@pytest.mark.parametrize("name", list(TASK_MODELS))
+def test_task_model_forward_dynamics_matches_jax(name):
+    """qdd with external wrenches, then with implicit PD drives on every
+    1-dof joint (effort-clamped), held to 1e-4 of its largest magnitude;
+    BallBalance's two-root forest takes the tree solve in both packages,
+    the other four the dense one."""
+    jm, tm = TASK_MODELS[name]
+    assert tdyn._uses_tree_solve(tm) == (name == "ball_balance")
+    q, v, tau, jp, tp = _model_state(jm, tm, 21)
+    rs = np.random.RandomState(22)
+    f_ext = rs.randn(tm.nb, 6, N)
+    drives = dict(drive_kp=rs.uniform(0, 80, (N, tm.nv)),
+                  drive_kd=rs.uniform(0, 2, (N, tm.nv)),
+                  drive_target=rs.uniform(-0.5, 0.5, (N, tm.nv)))
+    for kw in ({}, drives):
+        jkw = {k: _j(x) for k, x in kw.items()}
+        tkw = {k: _t(x) for k, x in kw.items()}
+        if kw:
+            jkw["drive_effort"] = tkw["drive_effort"] = 40.0
+        want, _ = jdyn.forward_dynamics(jm, _j(q), _j(v), _j(tau), jp,
+                                        _j(f_ext), dt=1 / 120, **jkw)
+        got, _, factor = forward_dynamics(tm, _t(q), _t(v), _t(tau), tp,
+                                          _t(f_ext), dt=1 / 120,
+                                          return_factor=True, **tkw)
+        assert factor[0] == ("tree" if name == "ball_balance" else "dense")
+        got, want = got.numpy(), np.asarray(want)
+        assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+# ------------------------------------------------------------------ #
+# The sphere-vs-body-plane pair contact.
+# ------------------------------------------------------------------ #
+def _pair_case(normal, seed):
+    """BallBalance's model with the ball placed against a plane patch on
+    the tilted tray, per env: active (1 cm into the plane, inside the
+    patch), inactive (5 cm off it) and outside the patch (1 cm in, 0.6 m
+    along it past the 0.5 half-size), 3 envs each; per-env env-last
+    sphere offsets and plane points; small random velocities."""
+    jm, tm = TASK_MODELS["ball_balance"]
+    rs = np.random.RandomState(seed)
+    n = 9
+    nrm = np.asarray(normal, np.float64)
+    tangents = np.eye(3)[np.abs(nrm) < 0.5]              # the two others
+    q = np.tile(tm.neutral_q(), (n, 1))
+    q[:, 0:3] = [0.0, 0.0, 0.7]
+    quat = np.array([1.0, 0.0, 0.0, 0.0]) + rs.uniform(-0.1, 0.1, (n, 4))
+    quat /= np.linalg.norm(quat, axis=1, keepdims=True)
+    q[:, 3:7] = quat
+    scale = rs.uniform(0.9, 1.1, n)
+    off = rs.uniform(-0.01, 0.01, (3, n))
+    pp = np.array([0.0, 0.0, 0.02])[:, None] + rs.uniform(-0.01, 0.01, (3, n))
+    dist = np.array([0.09, 0.15, 0.09] * 3) * scale       # radius 0.1
+    along = np.array([[0.1, -0.15], [0.1, -0.15], [0.6, 0.1]] * 3)
+    R = np.asarray(jspatial.quat_to_rot(_j(quat)), np.float64)
+    local = (pp * scale).T + nrm * dist[:, None] + along @ tangents * scale[
+        :, None]
+    center = q[:, 0:3] + np.einsum("nij,nj->ni", R, local)
+    bq = tm.q_off[7]
+    q[:, bq:bq + 3] = center - (off * scale).T           # ball unrotated
+    # Slow enough that no active env separates faster than its spring
+    # pushes (a normal force clamped to 0 would zero the env).
+    v = rs.uniform(-0.05, 0.05, (n, tm.nv))
+    base = JaxDynParams.defaults(jm)
+    mult = rs.uniform(0.5, 2.0, (n, tm.nb))
+
+    def rows(x):
+        x = np.asarray(x)
+        return _j(np.broadcast_to(x, (n,) + x.shape))
+    jp = JaxDynParams(
+        mass=_j(np.asarray(base.mass) * mult), com=rows(base.com),
+        inertia=_j(np.asarray(base.inertia) * mult[:, :, None]),
+        stiffness=rows(base.stiffness), damping=rows(base.damping),
+        friction=rows(base.friction), armature=rows(base.armature),
+        gravity=rows(base.gravity),
+        contact_friction=rows(base.contact_friction),
+        restitution=rows(base.restitution), scale=_j(scale))
+    return (jm, tm, q.astype(np.float32), v.astype(np.float32), jp,
+            dynparams_from_jax(jp), off.astype(np.float32),
+            pp.astype(np.float32))
+
+
+@pytest.mark.parametrize("normal", [(0.0, 0.0, 1.0), (0.0, 1.0, 0.0)])
+def test_sphere_plane_pair_forces_match_jax(normal):
+    """Value for value within rtol 1e-5 / atol 1e-5 (float32, the same
+    operations): active, inactive and outside-the-patch envs, on a
+    z-normal patch (the tray) and a y-normal one (a finger pad), where the
+    tangential half-size gate bounds the two in-plane axes."""
+    from bayes_sim_ig_tpu.physics.contact import (
+        sphere_plane_pair_forces as jax_pair,
+    )
+    from bayes_sim_ig_tpu_torch.physics import sphere_plane_pair_forces
+    jm, tm, q, v, jp, tp, off, pp = _pair_case(normal, 23)
+    jkin = jdyn.forward_kinematics(jm, _j(q), _j(v), jp)
+    tkin = forward_kinematics(tm, _t(q), _t(v), tp)
+    kw = dict(sphere_link=7, radius=0.1, plane_link=0,
+              plane_normal=normal, mu=1.2, dt=1 / 120, plane_halfsize=0.5)
+    want = jax_pair(jm, jkin, jp, sphere_offset=_j(off),
+                    plane_point=_j(pp), **kw)
+    got = sphere_plane_pair_forces(tm, tkin, tp, sphere_offset=_t(off),
+                                   plane_point=_t(pp), **kw)
+    assert tuple(got.shape) == (tm.nb, 6, 9)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    loaded = got.abs().amax((0, 1)) > 0
+    assert loaded.tolist() == [True, False, False] * 3
+    # Equal and opposite forces on the ball and the tray; nothing else.
+    torch.testing.assert_close(got[7, 3:], -got[0, 3:])
+    assert (got[1:7] == 0).all() and (got[8:] == 0).all()
+
+
+def test_sphere_plane_pair_forces_single_env_and_static_vectors():
+    """A single env's squeezed kinematics give (nb, 6), and static (3,)
+    offsets broadcast: equal to that env's column of the batched call."""
+    from bayes_sim_ig_tpu_torch.physics import sphere_plane_pair_forces
+    _, tm, q, v, jp, tp, _, _ = _pair_case((0.0, 0.0, 1.0), 24)
+    kw = dict(sphere_link=7, sphere_offset=(0.0, 0.0, 0.0), radius=0.1,
+              plane_link=0, plane_point=(0.0, 0.0, 0.02),
+              plane_normal=(0.0, 0.0, 1.0), dt=1 / 120, plane_halfsize=0.5)
+    batched = sphere_plane_pair_forces(
+        tm, forward_kinematics(tm, _t(q), _t(v), tp), tp, **kw)
+    one = dynparams_from_jax(JaxDynParams(*[a[0] for a in jp]))
+    single = sphere_plane_pair_forces(
+        tm, forward_kinematics(tm, _t(q[0]), _t(v[0]), one), one, **kw)
+    assert tuple(single.shape) == (tm.nb, 6)
+    torch.testing.assert_close(single, batched[..., 0], rtol=1e-6,
+                               atol=1e-6)

@@ -54,13 +54,13 @@ def _moderate_params(rs, n):
 
 
 def test_cartpole_spec_matches_jax():
-    assert (Cartpole(_cfg()).params_spec.names
+    assert (Cartpole(_cfg(), device="cpu").params_spec.names
             == JaxCartpole(_cfg()).params_spec.names)
 
 
 def test_cartpole_50_steps_match_jax():
     rs = np.random.RandomState(0)
-    jt, tt = JaxCartpole(_cfg()), Cartpole(_cfg())
+    jt, tt = JaxCartpole(_cfg()), Cartpole(_cfg(), device="cpu")
     params = _moderate_params(rs, N)
     s0 = rs.uniform(-0.1, 0.1, (4, N)).astype(np.float32)
     # Forces up to 80 N keep most poles from spinning over within the 50
@@ -89,13 +89,13 @@ def test_cartpole_50_steps_match_jax():
 
 def test_env_step_quarantines_a_nan_env_like_jax():
     cfg = _cfg(4)
-    spec_lows = Cartpole(cfg).params_spec.lows
-    spec_highs = Cartpole(cfg).params_spec.highs
+    spec_lows = Cartpole(cfg, device="cpu").params_spec.lows
+    spec_highs = Cartpole(cfg, device="cpu").params_spec.highs
     prior_t = to_device_distr(Uniform(spec_lows, spec_highs))
     from bayes_sim_ig_tpu.distributions import Uniform as JaxUniform
     prior_j = jax_to_device_distr(JaxUniform(spec_lows, spec_highs))
 
-    env = make_env("Cartpole", cfg)
+    env = make_env("Cartpole", cfg, device="cpu")
     env.set_distr(prior_t)
     env.reset()
     st = env.state
@@ -127,7 +127,7 @@ def test_env_step_quarantines_a_nan_env_like_jax():
 
 def test_env_step_resets_at_the_episode_length():
     cfg = _cfg(3)
-    env = make_env("Cartpole", cfg, seed=1)
+    env = make_env("Cartpole", cfg, seed=1, device="cpu")
     spec = env.task.params_spec
     mean = np.ones(spec.dim)
     mean[9:] = 0.5
@@ -185,7 +185,27 @@ def test_device_mog_cholesky_layout_matches_jax():
 
 def test_make_env_refuses_tasks_not_yet_ported():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        make_env("ShadowHand", _cfg())
+        make_env("ShadowHand", _cfg(), device="cpu")
+
+
+def test_make_env_defaults_to_the_card(monkeypatch):
+    """make_env and every task constructor default to the card; without
+    one (torch.cuda.is_available() False, as on this CPU-only torch or
+    forced so on a card's machine) the default raises instead of running
+    on the CPU, and device="cpu" is what a caller asks the CPU with."""
+    import inspect
+    from bayes_sim_ig_tpu_torch import sim
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        make_env("Cartpole", _cfg())
+    assert inspect.signature(make_env).parameters["device"].default == "cuda"
+    for name in sim.available_tasks():
+        cls = sim._TASK_REGISTRY[name]
+        assert inspect.signature(cls).parameters["device"].default == \
+            "cuda", name
+        with pytest.raises(RuntimeError, match="is_available"):
+            cls(_cfg())
+    assert make_env("Cartpole", _cfg(), device="cpu").device.type == "cpu"
 
 
 def test_postprocess_round_matches_jax():
@@ -223,7 +243,8 @@ def test_collect_policies():
     mixed = get_collect_policy("policy_rl_randomized")(act, gen)
     assert mixed.shape == act.shape
     with pytest.warns(UserWarning, match="grasp_excitation_dims"):
-        grasp = get_collect_policy("policy_grasp", task=Cartpole(_cfg()))
+        grasp = get_collect_policy("policy_grasp",
+                                   task=Cartpole(_cfg(), device="cpu"))
     assert torch.equal(grasp(act, gen), torch.ones_like(act))
     with pytest.raises(KeyError):
         get_collect_policy("policy_nope")

@@ -185,8 +185,8 @@ def _replay_lanes(At, bt):
     return L.transpose(2, 1, 0), x.T
 
 
-@pytest.mark.parametrize("n,N", [(1, 3), (13, 5), (14, 9), (17, 4),
-                                 (32, 3)])
+@pytest.mark.parametrize("n,N", [(1, 3), (10, 4), (13, 5), (14, 9),
+                                 (17, 4), (18, 6), (32, 3)])
 def test_lane_algorithm_replay_matches_plain(n, N):
     """The kernels' order of operations against the plain versions: the
     factor and both passes within rtol 1e-4 / atol 1e-5 (sums in another
@@ -202,6 +202,28 @@ def test_lane_algorithm_replay_matches_plain(n, N):
     xp = spd_kernel._chol_lanes_substitute(Lp, _t(bt)).numpy()
     np.testing.assert_allclose(x, xp, **LOOSE)
     assert np.isnan(x[:, 0]).all() and np.isfinite(x[:, 1:]).all()
+
+
+def test_full_warp_replay_at_anymal_systems():
+    """The n = 18 instance (a full warp an env, 14 lanes idle) replayed on
+    Anymal-like systems: a CRBA-shaped SPD matrix per env (A = B B^T + 18
+    I kept at the dense pattern, scaled by per-env masses over 0.01-5x),
+    factor and solve within rtol 1e-4 / atol 1e-5 of the plain versions,
+    which also solve the system in float64 to 1e-4 of |x|."""
+    rs = np.random.RandomState(18)
+    n, N = 18, 5
+    B = rs.randn(N, n, n)
+    A = (B @ B.transpose(0, 2, 1) + n * np.eye(n)) * rs.uniform(
+        0.01, 5.0, (N, 1, 1))
+    At = np.ascontiguousarray(A.transpose(1, 2, 0)).astype(np.float32)
+    bt = rs.randn(n, N).astype(np.float32)
+    Lt, x = _replay_lanes(At, bt)
+    Lp = spd_kernel._chol_lanes_factor(_t(At))
+    np.testing.assert_allclose(Lt, Lp.numpy(), **LOOSE)
+    xp = spd_kernel._chol_lanes_substitute(Lp, _t(bt)).numpy()
+    np.testing.assert_allclose(x, xp, **LOOSE)
+    want = np.linalg.solve(A, bt.T.astype(np.float64)[..., None])[..., 0].T
+    assert np.abs(xp - want).max() <= 1e-4 * np.abs(want).max()
 
 
 def test_bounds_hand_counts():
@@ -235,7 +257,9 @@ def test_kernel_wrappers_refuse_cpu_tensors(fn, args):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,N,k", [(14, 1024, 1), (14, 1, 1), (5, 17, 4),
-                                   (30, 1024, 4)])
+                                   (30, 1024, 4), (18, 4000, 1),
+                                   (14, 8192, 1), (10, 4096, 2),
+                                   (10, 2048, 1)])
 def test_kernels_match_plain_on_card(n, N, k):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")

@@ -23,6 +23,8 @@ import jax.numpy as jnp
 
 from bayes_sim_ig_tpu.ops import tree_solve as jts
 from bayes_sim_ig_tpu.sim.ant import build_ant_model
+from bayes_sim_ig_tpu.sim.anymal import build_anymal_model
+from bayes_sim_ig_tpu.sim.ball_balance import build_bbot_model
 from bayes_sim_ig_tpu.sim.humanoid import build_humanoid_model
 from bayes_sim_ig_tpu_torch.ops import bounds
 from bayes_sim_ig_tpu_torch.ops import tree_solve as tts
@@ -47,6 +49,10 @@ def _random_chains(nv, seed):
 TREES = {
     "humanoid": build_humanoid_model().dof_anc_chains,
     "ant": build_ant_model().dof_anc_chains,
+    # Two roots: the tray's tree (a free base, three 2-dof legs) and the
+    # free ball.
+    "ball_balance": build_bbot_model().dof_anc_chains,
+    "anymal": build_anymal_model().dof_anc_chains,
     "random5": _random_chains(5, 0),
     "random12": _random_chains(12, 1),
     "random30": _random_chains(30, 2),
@@ -267,6 +273,26 @@ def test_kernel_rounds_replay_the_plain_version(tree):
     assert np.isnan(x[:, 2]).all() and np.isfinite(np.delete(x, 2, 1)).all()
 
 
+def test_ball_balance_forest_tables():
+    """BallBalance's 18 dofs in two trees: roots 0 (the tray's free joint,
+    its 6 dofs a chain, the legs below dof 5) and 12 (the ball's); 87
+    pairs, mean depth 3.83; its factor rounds run height by height across
+    both trees, and the back pass starts both roots in its first
+    round."""
+    tt = tts.tree_tables(TREES["ball_balance"])
+    assert (tt.nv, tt.E) == (18, 87) and tt.tree_ordered
+    assert [k for k in range(18) if tt.parent[k] < 0] == [0, 12]
+    assert tt.mean_depth == pytest.approx(69 / 18)
+    assert tt.height[0] == 7 and tt.height[12] == 5
+    down = tts.back_rounds(tt)
+    assert {0, 12} <= set(down[0].tolist())
+    head, slot = tts.factor_rounds(tt)
+    # Heights 0..7; the 30 pair tasks of the 4 leaves (height 0) take two
+    # rounds of 16 lanes, and so do height 1's.
+    assert int(sum(bool(h & tts._FIRST_ROUND) for h in head)) == 8
+    assert len(head) == 10
+
+
 def test_bounds_hand_counts():
     """Bytes at Humanoid's path shape (nv 27, E 243, N 4096): the factor
     reads M and writes H (243 x 4096 floats each) and D (27 x 4096); the
@@ -462,7 +488,8 @@ def _card_system(tree, n, k):
 @pytest.mark.cuda
 @pytest.mark.parametrize("tree,n,k", [
     ("humanoid", 4096, 1), ("humanoid", 1, 1), ("humanoid", 17, 4),
-    ("ant", 1024, 4), ("random_2", 1024, 1), ("random_3", 33, 4)])
+    ("ant", 1024, 4), ("random_2", 1024, 1), ("random_3", 33, 4),
+    ("ball_balance", 128, 1), ("ball_balance", 128, 4)])
 def test_kernels_match_plain_on_card(tree, n, k):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -495,7 +522,8 @@ def test_kernel_refuses_inputs_that_require_grad():
 @pytest.mark.cuda
 @pytest.mark.parametrize("tree,n,k", [
     ("humanoid", 4097, 1), ("humanoid", 9, 3), ("ant", 1025, 1),
-    ("chain40", 37, 2), ("chain40", 1027, 1), ("random30", 5, 1)])
+    ("chain40", 37, 2), ("chain40", 1027, 1), ("random30", 5, 1),
+    ("ball_balance", 129, 1)])
 def test_partial_blocks_on_card(tree, n, k):
     """The kernels at env counts that leave a partial block (N not a
     multiple of the 16 envs a block), and on chains longer than an env's
