@@ -36,10 +36,19 @@
 //     tree_ltdl_factor_f32      M -> H (L at off-diagonal pairs, raw
 //                               pivots on the diagonal) and D
 //     tree_ltdl_substitute_f32  x = L^-1 D^-1 L^-T b for K right-hand sides
+//     tree_ltdl_upsolve_f32     z = L^-T b for K right-hand sides
+//     tree_ltdl_downsolve_f32   x = L^-1 z for K right-hand sides
+// The last three are one kernel with a pass mask (UP, SCALE, DOWN): the
+// half-solves are its up and its down pass alone. The contact impulse
+// pass (physics/contact.py) up-solves its Jacobian rows once per control
+// step and down-solves one vector per substep; an up-solve on rows that
+// are zero outside an ancestor-closed dof set leaves them zero there, so
+// the full pass serves every closure at once.
 //
 // Replaces the jnp solver of bayes_sim_ig_tpu/ops/tree_solve.py (no Pallas
 // original): ltdl_factor (:50) and its left-looking form ltdl_factor_ll
-// (:76), and ltdl_substitute (:127). XLA fuses those per-pair graphs; in
+// (:76), ltdl_substitute (:127), ltdl_upsolve (:146) and ltdl_downsolve
+// (:163). XLA fuses those per-pair graphs; in
 // eager PyTorch each pair update is its own launch (~1,100 a step for the
 // factor and substitute at Humanoid's 27 dofs), so the solve is one
 // launch each here. The factor is the right-looking elimination of
@@ -114,6 +123,8 @@ constexpr int MAX_PAIRS = 1024;  // ops/tree_solve.py MAX_PAIRS
 constexpr int FIRST = 1 << 17;
 constexpr int LAST = 1 << 16;
 constexpr int BATCH = 8;  // terms a lane loads at once (ops/tree_solve.py)
+// Passes of the substitute kernel: z = L^-T b, z /= D, x = L^-1 z.
+constexpr int UP = 1, SCALE = 2, DOWN = 4;
 constexpr int STATIC_SMEM = 48 * 1024;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -245,33 +256,12 @@ tree_factor_kernel(const int* __restrict__ table, int ints, int nv, int E,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-tree_substitute_kernel(const int* __restrict__ table, int nv, int E, int Rd,
-                       const float* __restrict__ H,
-                       const float* __restrict__ D,
-                       const float* __restrict__ b, float* __restrict__ x,
-                       int N) {
-  extern __shared__ float smem[];
-  const int es = slab_stride(E + 2 * nv);  // H (E), D (nv), x (nv)
-  int* tab = reinterpret_cast<int*>(smem + T * es);
-  const Table tb(tab, nv, E, Rd, 0);
-  const int e0 = blockIdx.x * T;
-  const size_t rhs = (size_t)blockIdx.y * nv * N;
-  stage_rows(smem, es, H, E, N, e0);
-  stage_rows(smem + E, es, D, nv, N, e0);
-  stage_rows(smem + E + nv, es, b + rhs, nv, N, e0);
-  stage_table(tab, table, nv + 1 + E + Rd * G);
-  cp_async_wait_all();
-  __syncthreads();
-  const int lane = threadIdx.x % G;
-  float* env = smem + (threadIdx.x / G) * es;
-  const float* h = env;
-  const float* dd = env + E;
-  float* xs = env + E + nv;
-  // z = L^-T b: each dof, leaf to root, pushes its row up its chain, one
-  // ancestor a lane. A lane's first ancestor and factor entry of the next
-  // dof are loaded before the barrier that ends this one (the table and H
-  // do not change).
+// z = L^-T b in place on env slab xs: each dof, leaf to root, pushes its
+// row up its chain, one ancestor a lane. A lane's first ancestor and
+// factor entry of the next dof are loaded before the barrier that ends
+// this one (the table and H do not change).
+__device__ __forceinline__ void up_pass(const Table& tb, const float* h,
+                                        float* xs, int nv, int lane) {
   int pk = tb.off[nv - 1], pk_end = tb.off[nv];
   int i = lane < pk_end - pk - 1 ? tb.anc[pk + 1 + lane] : 0;
   float l = lane < pk_end - pk - 1 ? h[pk + 1 + lane] : 0.0f;
@@ -295,10 +285,12 @@ tree_substitute_kernel(const int* __restrict__ table, int nv, int E, int Rd,
     i = next_i;
     l = next_l;
   }
-  for (int k = lane; k < nv; k += G) xs[k] /= dd[k];
-  __syncwarp();
-  // x = L^-1 z, depth by depth from the root: each lane's dof subtracts
-  // its chain's terms, leaf to root.
+}
+
+// x = L^-1 z in place on env slab xs, depth by depth from the root:
+// each lane's dof subtracts its chain's terms, leaf to root.
+__device__ __forceinline__ void down_pass(const Table& tb, const float* h,
+                                          float* xs, int Rd, int lane) {
   for (int r = 0; r < Rd; ++r) {
     const int k = tb.down[r * G + lane];
     if (k >= 0) {  // BATCH terms at a time, so that their loads overlap;
@@ -319,6 +311,42 @@ tree_substitute_kernel(const int* __restrict__ table, int nv, int E, int Rd,
     }
     __syncwarp();
   }
+}
+
+// The passes in PASSES, in the order up, scale, down; D is read only with
+// SCALE. All three are the substitute; UP alone and DOWN alone the
+// half-solves. A pass left out costs nothing: each is compiled only into
+// the instances that run it.
+template <int PASSES>
+__global__ void __launch_bounds__(THREADS)
+tree_substitute_kernel(const int* __restrict__ table, int nv, int E, int Rd,
+                       const float* __restrict__ H,
+                       const float* __restrict__ D,
+                       const float* __restrict__ b, float* __restrict__ x,
+                       int N) {
+  extern __shared__ float smem[];
+  const int es = slab_stride(E + 2 * nv);  // H (E), D (nv), x (nv)
+  int* tab = reinterpret_cast<int*>(smem + T * es);
+  const Table tb(tab, nv, E, Rd, 0);
+  const int e0 = blockIdx.x * T;
+  const size_t rhs = (size_t)blockIdx.y * nv * N;
+  stage_rows(smem, es, H, E, N, e0);
+  if (PASSES & SCALE) stage_rows(smem + E, es, D, nv, N, e0);
+  stage_rows(smem + E + nv, es, b + rhs, nv, N, e0);
+  stage_table(tab, table, nv + 1 + E + Rd * G);
+  cp_async_wait_all();
+  __syncthreads();
+  const int lane = threadIdx.x % G;
+  float* env = smem + (threadIdx.x / G) * es;
+  const float* h = env;
+  const float* dd = env + E;
+  float* xs = env + E + nv;
+  if (PASSES & UP) up_pass(tb, h, xs, nv, lane);
+  if (PASSES & SCALE) {
+    for (int k = lane; k < nv; k += G) xs[k] /= dd[k];
+    __syncwarp();
+  }
+  if (PASSES & DOWN) down_pass(tb, h, xs, Rd, lane);
   __syncthreads();
   for (int v = threadIdx.x; v < nv * T; v += THREADS) {
     const int t = v % T, q = v / T;
@@ -369,19 +397,49 @@ extern "C" int tree_ltdl_factor_f32(const int* table, int ints, int nv,
   return (int)cudaGetLastError();
 }
 
+namespace {
+
+template <int PASSES>
+int substitute(const int* table, int ints, int nv, int E, int Rd, int Rf,
+               const float* H, const float* D, const float* b, float* x,
+               int K, int N, void* stream) {
+  if (int err = check(ints, nv, E, Rd, Rf, N, K)) return err;
+  if (N == 0 || K == 0) return (int)cudaSuccess;
+  size_t bytes;
+  if (int err = smem_bytes(tree_substitute_kernel<PASSES>, E + 2 * nv,
+                           nv + 1 + E + Rd * G, &bytes))
+    return err;
+  tree_substitute_kernel<PASSES>
+      <<<dim3((N + T - 1) / T, K), THREADS, bytes, (cudaStream_t)stream>>>(
+          table, nv, E, Rd, H, D, b, x, N);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" int tree_ltdl_substitute_f32(const int* table, int ints, int nv,
                                         int E, int Rd, int Rf,
                                         const float* H, const float* D,
                                         const float* b, float* x, int K,
                                         int N, void* stream) {
-  if (int err = check(ints, nv, E, Rd, Rf, N, K)) return err;
-  if (N == 0 || K == 0) return (int)cudaSuccess;
-  size_t bytes;
-  if (int err = smem_bytes(tree_substitute_kernel, E + 2 * nv,
-                           nv + 1 + E + Rd * G, &bytes))
-    return err;
-  tree_substitute_kernel<<<dim3((N + T - 1) / T, K), THREADS, bytes,
-                           (cudaStream_t)stream>>>(table, nv, E, Rd, H, D, b,
-                                                   x, N);
-  return (int)cudaGetLastError();
+  return substitute<UP | SCALE | DOWN>(table, ints, nv, E, Rd, Rf, H, D, b,
+                                       x, K, N, stream);
+}
+
+// z = L^-T b: the substitute's up pass alone (D is not read).
+extern "C" int tree_ltdl_upsolve_f32(const int* table, int ints, int nv,
+                                     int E, int Rd, int Rf, const float* H,
+                                     const float* b, float* z, int K, int N,
+                                     void* stream) {
+  return substitute<UP>(table, ints, nv, E, Rd, Rf, H, nullptr, b, z, K, N,
+                        stream);
+}
+
+// x = L^-1 z: the substitute's down pass alone (D is not read).
+extern "C" int tree_ltdl_downsolve_f32(const int* table, int ints, int nv,
+                                       int E, int Rd, int Rf, const float* H,
+                                       const float* z, float* x, int K, int N,
+                                       void* stream) {
+  return substitute<DOWN>(table, ints, nv, E, Rd, Rf, H, nullptr, z, x, K, N,
+                          stream);
 }

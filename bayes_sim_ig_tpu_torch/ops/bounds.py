@@ -22,6 +22,9 @@ Counting rules, per env unless stated:
   * Tree substitute (K right-hand sides): reads the E - nv off-diagonal
     pairs of H once, D and b, writes x; per right-hand side 2 (E - nv)
     multiply-adds and nv divides.
+  * Tree half-solves, L^-T (upsolve) or L^-1 (downsolve), K right-hand
+    sides: read the off-diagonal pairs of H once and b, write x; per
+    right-hand side E - nv multiply-adds.
   * RFF (B, d, m): reads x (B d) and coeff (d m), writes (B, 2m); 2 B d m
     FLOPs of the product plus 4 B m (a cos, a sin and two scalings,
     counted as one FLOP each, the floor of their cost).
@@ -90,6 +93,13 @@ def tree_substitute(chains: Sequence[Sequence[int]], N: int,
     off_diag = sum(len(c) for c in chains)
     return Bound(_F32 * N * (off_diag + nv + 2 * K * nv),
                  N * K * (4 * off_diag + nv))
+
+
+def tree_half_solve(chains: Sequence[Sequence[int]], N: int,
+                    K: int = 1) -> Bound:
+    off_diag = sum(len(c) for c in chains)
+    nv = len(chains)
+    return Bound(_F32 * N * (off_diag + 2 * K * nv), N * K * 2 * off_diag)
 
 
 def rff_features(B: int, d: int, m: int) -> Bound:

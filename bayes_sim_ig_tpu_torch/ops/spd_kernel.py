@@ -26,6 +26,8 @@ import ctypes
 
 import torch
 
+from .launch import check_cuda, launch, on_cpu
+
 # Kernel launches made by this process, by entry point; read and reset by
 # callers that must show a run went through the kernels.
 LAUNCHES = {"factor": 0, "substitute": 0, "solve": 0}
@@ -104,24 +106,8 @@ def _kernel_fns():
     return _FNS
 
 
-def _check_cuda(name, *tensors):
-    dev = tensors[0].device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError(f"{name} needs all tensors on one CUDA device, got "
-                         f"{[str(t.device) for t in tensors]}")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"{name} takes float32, got "
-                        f"{[t.dtype for t in tensors]}")
-
-
 def _launch(entry, dev, *args):
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel_fns()[entry](*args, stream)
-    if err != 0:
-        raise RuntimeError(f"spd_lanes {entry} kernel launch failed: CUDA "
-                           f"error {err}")
-    LAUNCHES[entry] += 1
+    launch("spd_lanes", _kernel_fns(), LAUNCHES, entry, dev, *args)
 
 
 def _check_systems(name, At):
@@ -134,7 +120,7 @@ def _check_systems(name, At):
 
 def spd_factor_lanes_cuda(At: torch.Tensor) -> torch.Tensor:
     """Launches the factor kernel: At (n, n, N) -> Lt (n, n, N)."""
-    _check_cuda("spd_factor_lanes_cuda", At)
+    check_cuda("spd_factor_lanes_cuda", At)
     _check_systems("spd_factor_lanes_cuda", At)
     At = At.contiguous()  # the physics hands in transposed views
     n, _, N = At.shape
@@ -147,7 +133,7 @@ def spd_substitute_lanes_cuda(Lt: torch.Tensor,
                               bt: torch.Tensor) -> torch.Tensor:
     """Launches the substitute kernel: Lt (n, n, N), bt (n, N) or
     (K, n, N) -> x shaped as bt."""
-    _check_cuda("spd_substitute_lanes_cuda", Lt, bt)
+    check_cuda("spd_substitute_lanes_cuda", Lt, bt)
     _check_systems("spd_substitute_lanes_cuda", Lt)
     n, _, N = Lt.shape
     if bt.shape[-2:] != (n, N) or bt.ndim not in (2, 3):
@@ -168,7 +154,7 @@ def spd_substitute_lanes_cuda(Lt: torch.Tensor,
 def spd_solve_lanes_cuda(At: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
     """Launches the fused factor + substitute kernel: At (n, n, N), bt
     (n, N) -> (n, N)."""
-    _check_cuda("spd_solve_lanes_cuda", At, bt)
+    check_cuda("spd_solve_lanes_cuda", At, bt)
     _check_systems("spd_solve_lanes_cuda", At)
     n, _, N = At.shape
     if tuple(bt.shape) != (n, N):
@@ -181,12 +167,8 @@ def spd_solve_lanes_cuda(At: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
     return xt
 
 
-def _on_cpu(*tensors) -> bool:
-    return all(t.device.type == "cpu" for t in tensors)
-
-
 def _solve_lanes(At, bt):
-    if _on_cpu(At, bt):
+    if on_cpu(At, bt):
         return _chol_lanes_core(At, bt)
     return spd_solve_lanes_cuda(At, bt)
 
@@ -221,7 +203,7 @@ def spd_solve_lanes(At: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
 def spd_factor_lanes(At: torch.Tensor):
     """Factorizes At (n, n, N) once for reuse against several right-hand
     sides through ``spd_substitute_lanes``; returns ("chol_lanes", Lt)."""
-    if _on_cpu(At):
+    if on_cpu(At):
         return ("chol_lanes", _chol_lanes_factor(At))
     return ("chol_lanes", spd_factor_lanes_cuda(At))
 
@@ -232,7 +214,7 @@ def spd_substitute_lanes(factor, bt: torch.Tensor) -> torch.Tensor:
     kind, Lt = factor
     if kind != "chol_lanes":
         raise ValueError(f"unknown SPD factor kind {kind!r}")
-    if _on_cpu(Lt, bt):
+    if on_cpu(Lt, bt):
         return _chol_lanes_substitute(Lt, bt)
     return spd_substitute_lanes_cuda(Lt, bt)
 

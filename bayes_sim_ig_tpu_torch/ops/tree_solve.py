@@ -16,11 +16,12 @@ Two forms of every function:
     ``ancestor_pairs(chains)``; plain PyTorch on any device;
   * tensor form, for the physics and the kernel: pair values stacked as
     Mp (E, N) in ``ancestor_pairs`` order, the factor payload (H (E, N),
-    D (nv, N)), right-hand sides (nv, N) or (K, nv, N). ``tree_factor`` and
-    ``tree_substitute`` run the plain version on a CPU tensor and launch
-    the hand-written kernel of ``csrc/tree_ltdl.cu`` on a CUDA tensor,
-    with no fallback: a CUDA tensor the kernel does not take raises, and
-    so does a failed build or launch.
+    D (nv, N)), right-hand sides (nv, N) or (K, nv, N). ``tree_factor``,
+    ``tree_substitute`` and the half-solves ``tree_upsolve`` (L^-T) and
+    ``tree_downsolve`` (L^-1) run the plain version on a CPU tensor and
+    launch the hand-written kernel of ``csrc/tree_ltdl.cu`` on a CUDA
+    tensor, with no fallback: a CUDA tensor the kernel does not take
+    raises, and so does a failed build or launch.
 
 NaN policy (as the JAX package's): a pivot that is not > 0 gives NaN in D,
 in that env only, so an indefinite system surfaces through the env step's
@@ -38,9 +39,11 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from .launch import check_cuda, launch, on_cpu
+
 # Kernel launches made by this process, by entry point; read and reset by
 # callers that must show a run went through the kernels.
-LAUNCHES = {"factor": 0, "substitute": 0}
+LAUNCHES = {"factor": 0, "substitute": 0, "upsolve": 0, "downsolve": 0}
 
 # csrc/tree_ltdl.cu bounds: dofs, ancestor pairs, right-hand sides.
 MAX_NV = 256
@@ -260,23 +263,35 @@ def _factor_ll_rows(tt: TreeTables, rows):
     return H, _nan_pivots([v[k][0] for k in range(nv)])
 
 
-def _substitute_rows(tt: TreeTables, H, D, b_rows):
-    """z = L^-T b (up the tree), z /= D, x = L^-1 z (down the tree). H:
-    pair rows in ``tt.pairs`` order (the diagonal is not read); D, b_rows:
-    nv rows. Rows broadcast, so (K, N) right-hand-side rows take (N,)
-    factor rows."""
-    nv, chains, off = tt.nv, tt.chains, tt.off
+def _upsolve_rows(tt: TreeTables, H, b_rows):
+    """z = L^-T b, up the tree: H pair rows in ``tt.pairs`` order (the
+    diagonal is not read), b_rows nv rows. Rows broadcast, so (K, N)
+    right-hand-side rows take (N,) factor rows."""
+    chains, off = tt.chains, tt.off
     x = list(b_rows)
-    for k in range(nv - 1, -1, -1):
+    for k in range(tt.nv - 1, -1, -1):
         for t, i in enumerate(chains[k]):
             x[i] = x[i] - H[off[k] + 1 + t] * x[k]
-    x = [x[k] / D[k] for k in range(nv)]
-    for k in range(nv):
+    return x
+
+
+def _downsolve_rows(tt: TreeTables, H, z_rows):
+    """x = L^-1 z, down the tree (the layout of ``_upsolve_rows``)."""
+    chains, off = tt.chains, tt.off
+    x = list(z_rows)
+    for k in range(tt.nv):
         acc = x[k]
         for t, i in enumerate(chains[k]):
             acc = acc - H[off[k] + 1 + t] * x[i]
         x[k] = acc
     return x
+
+
+def _substitute_rows(tt: TreeTables, H, D, b_rows):
+    """z = L^-T b (up the tree), z /= D, x = L^-1 z (down the tree). D:
+    nv rows; the rest as ``_upsolve_rows``."""
+    x = _upsolve_rows(tt, H, b_rows)
+    return _downsolve_rows(tt, H, [x[k] / D[k] for k in range(tt.nv)])
 
 
 # --------------------------------------------------------------------- #
@@ -373,6 +388,22 @@ def ltdl_substitute_plain(chains, factor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(x, -2)
 
 
+def ltdl_upsolve_plain(chains, H: torch.Tensor, b: torch.Tensor):
+    """z = L^-T b: H (E, N), b (nv, N) or (K, nv, N) -> z shaped as b.
+    Rows of b that are zero outside an ancestor-closed dof set stay zero
+    there, so this is ``ltdl_upsolve`` on every such set at once."""
+    tt = tree_tables(chains)
+    return torch.stack(_upsolve_rows(tt, list(H.unbind(0)),
+                                     list(b.unbind(-2))), -2)
+
+
+def ltdl_downsolve_plain(chains, H: torch.Tensor, z: torch.Tensor):
+    """x = L^-1 z: H (E, N), z (nv, N) or (K, nv, N) -> x shaped as z."""
+    tt = tree_tables(chains)
+    return torch.stack(_downsolve_rows(tt, list(H.unbind(0)),
+                                       list(z.unbind(-2))), -2)
+
+
 # --------------------------------------------------------------------- #
 # Tensor form: the CUDA kernels.
 # --------------------------------------------------------------------- #
@@ -387,24 +418,16 @@ def _kernel_fns():
         lib.tree_ltdl_substitute_f32.argtypes = [ptr, i32, i32, i32, i32,
                                                  i32, ptr, ptr, ptr, ptr,
                                                  i32, i32, ptr]
-        for fn in (lib.tree_ltdl_factor_f32, lib.tree_ltdl_substitute_f32):
-            fn.restype = ctypes.c_int
+        for half in (lib.tree_ltdl_upsolve_f32, lib.tree_ltdl_downsolve_f32):
+            half.argtypes = [ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, i32,
+                             i32, ptr]
         _FNS = {"factor": lib.tree_ltdl_factor_f32,
-                "substitute": lib.tree_ltdl_substitute_f32}
+                "substitute": lib.tree_ltdl_substitute_f32,
+                "upsolve": lib.tree_ltdl_upsolve_f32,
+                "downsolve": lib.tree_ltdl_downsolve_f32}
+        for fn in _FNS.values():
+            fn.restype = ctypes.c_int
     return _FNS
-
-
-def _check_cuda(name, *tensors):
-    dev = tensors[0].device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError(f"{name} needs all tensors on one CUDA device, got "
-                         f"{[str(t.device) for t in tensors]}")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"{name} takes float32, got "
-                        f"{[t.dtype for t in tensors]}")
-    if any(t.requires_grad for t in tensors):
-        raise ValueError(f"{name} has no backward: its inputs must not "
-                         f"require a gradient")
 
 
 def _kernel_tables(name, chains) -> TreeTables:
@@ -419,13 +442,7 @@ def _kernel_tables(name, chains) -> TreeTables:
 
 
 def _launch(entry, dev, *args):
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel_fns()[entry](*args, stream)
-    if err != 0:
-        raise RuntimeError(f"tree_ltdl {entry} kernel launch failed: CUDA "
-                           f"error {err}")
-    LAUNCHES[entry] += 1
+    launch("tree_ltdl", _kernel_fns(), LAUNCHES, entry, dev, *args)
 
 
 def _table_args(tt: TreeTables, device):
@@ -435,7 +452,7 @@ def _table_args(tt: TreeTables, device):
 
 def ltdl_factor_cuda(chains, Mp: torch.Tensor):
     """Launches the factor kernel: Mp (E, N) -> (H (E, N), D (nv, N))."""
-    _check_cuda("ltdl_factor_cuda", Mp)
+    check_cuda("ltdl_factor_cuda", Mp, no_grad=True)
     tt = _kernel_tables("ltdl_factor_cuda", chains)
     if Mp.ndim != 2 or Mp.shape[0] != tt.E:
         raise ValueError(f"ltdl_factor_cuda needs Mp ({tt.E}, N), got "
@@ -449,43 +466,70 @@ def ltdl_factor_cuda(chains, Mp: torch.Tensor):
     return H, D
 
 
+def _rhs_count(name, tt: TreeTables, H, b, D=None) -> int:
+    """Checks H (E, N), D (nv, N) and b (nv, N) or (K, nv, N); returns
+    K."""
+    N = H.shape[-1]
+    if H.shape != (tt.E, N) or (D is not None and D.shape != (tt.nv, N)):
+        raise ValueError(f"{name} needs H ({tt.E}, N) and D ({tt.nv}, N), "
+                         f"got {tuple(H.shape)}, "
+                         f"{None if D is None else tuple(D.shape)}")
+    if b.shape[-2:] != (tt.nv, N) or b.ndim not in (2, 3):
+        raise ValueError(f"{name} needs b (nv, N) or (K, nv, N) with "
+                         f"(nv, N) = {(tt.nv, N)}, got {tuple(b.shape)}")
+    k = b.shape[0] if b.ndim == 3 else 1
+    if k > _MAX_RHS:
+        raise ValueError(f"{name} takes at most {_MAX_RHS} right-hand sides, "
+                         f"got {k}")
+    return k
+
+
 def ltdl_substitute_cuda(chains, factor, b: torch.Tensor) -> torch.Tensor:
     """Launches the substitute kernel: factor (H (E, N), D (nv, N)), b
     (nv, N) or (K, nv, N) -> x shaped as b."""
     H, D = factor
-    _check_cuda("ltdl_substitute_cuda", H, D, b)
+    check_cuda("ltdl_substitute_cuda", H, D, b, no_grad=True)
     tt = _kernel_tables("ltdl_substitute_cuda", chains)
-    N = H.shape[-1]
-    if H.shape != (tt.E, N) or D.shape != (tt.nv, N):
-        raise ValueError(f"ltdl_substitute_cuda needs H ({tt.E}, N) and D "
-                         f"({tt.nv}, N), got {tuple(H.shape)}, "
-                         f"{tuple(D.shape)}")
-    if b.shape[-2:] != (tt.nv, N) or b.ndim not in (2, 3):
-        raise ValueError(f"ltdl_substitute_cuda needs b (nv, N) or "
-                         f"(K, nv, N) with (nv, N) = {(tt.nv, N)}, got "
-                         f"{tuple(b.shape)}")
-    k = b.shape[0] if b.ndim == 3 else 1
-    if k > _MAX_RHS:
-        raise ValueError(f"ltdl_substitute_cuda takes at most {_MAX_RHS} "
-                         f"right-hand sides, got {k}")
+    k = _rhs_count("ltdl_substitute_cuda", tt, H, b, D)
     H, D, b = H.contiguous(), D.contiguous(), b.contiguous()
     x = torch.empty_like(b)
     _launch("substitute", H.device, *_table_args(tt, H.device),
-            H.data_ptr(), D.data_ptr(), b.data_ptr(), x.data_ptr(), k, N)
+            H.data_ptr(), D.data_ptr(), b.data_ptr(), x.data_ptr(), k,
+            H.shape[1])
     return x
+
+
+def _half_solve_cuda(entry, chains, H: torch.Tensor, b: torch.Tensor):
+    name = f"ltdl_{entry}_cuda"
+    check_cuda(name, H, b, no_grad=True)
+    tt = _kernel_tables(name, chains)
+    k = _rhs_count(name, tt, H, b)
+    H, b = H.contiguous(), b.contiguous()
+    x = torch.empty_like(b)
+    _launch(entry, H.device, *_table_args(tt, H.device), H.data_ptr(),
+            b.data_ptr(), x.data_ptr(), k, H.shape[1])
+    return x
+
+
+def ltdl_upsolve_cuda(chains, H: torch.Tensor, b: torch.Tensor):
+    """Launches the substitute kernel's up pass alone: H (E, N), b (nv, N)
+    or (K, nv, N) -> z = L^-T b shaped as b."""
+    return _half_solve_cuda("upsolve", chains, H, b)
+
+
+def ltdl_downsolve_cuda(chains, H: torch.Tensor, z: torch.Tensor):
+    """Launches the substitute kernel's down pass alone: H (E, N), z
+    (nv, N) or (K, nv, N) -> x = L^-1 z shaped as z."""
+    return _half_solve_cuda("downsolve", chains, H, z)
 
 
 # --------------------------------------------------------------------- #
 # Tensor-form entry points: plain version on the CPU, kernel on the card.
 # --------------------------------------------------------------------- #
-def _on_cpu(*tensors) -> bool:
-    return all(t.device.type == "cpu" for t in tensors)
-
-
 def tree_factor(chains, Mp: torch.Tensor, left_looking: bool = False):
     """Mp (E, N) -> (H (E, N), D (nv, N)). ``left_looking`` picks the form
     of the plain version (CPU tensors); the kernel has one form."""
-    if _on_cpu(Mp):
+    if on_cpu(Mp):
         return ltdl_factor_plain(chains, Mp, left_looking)
     return ltdl_factor_cuda(chains, Mp)
 
@@ -493,6 +537,22 @@ def tree_factor(chains, Mp: torch.Tensor, left_looking: bool = False):
 def tree_substitute(chains, factor, b: torch.Tensor) -> torch.Tensor:
     """Solves against a ``tree_factor`` result: b (nv, N) or (K, nv, N) ->
     x shaped as b."""
-    if _on_cpu(*factor, b):
+    if on_cpu(*factor, b):
         return ltdl_substitute_plain(chains, factor, b)
     return ltdl_substitute_cuda(chains, factor, b)
+
+
+def tree_upsolve(chains, H: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """z = L^-T x against a ``tree_factor`` result's H: x (nv, N) or
+    (K, nv, N) -> z shaped as x."""
+    if on_cpu(H, x):
+        return ltdl_upsolve_plain(chains, H, x)
+    return ltdl_upsolve_cuda(chains, H, x)
+
+
+def tree_downsolve(chains, H: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """x = L^-1 z against a ``tree_factor`` result's H: z (nv, N) or
+    (K, nv, N) -> x shaped as z."""
+    if on_cpu(H, z):
+        return ltdl_downsolve_plain(chains, H, z)
+    return ltdl_downsolve_cuda(chains, H, z)

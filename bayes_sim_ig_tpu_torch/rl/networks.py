@@ -29,12 +29,14 @@ def _orthogonal_linear(fan_in, fan_out, gain, gen):
 
 
 class ActorCritic(nn.Module):
-    """Actor and critic both read the observations; weights are drawn from
-    ``gen``."""
+    """The actor reads the observations, the critic the observations or,
+    with ``state_dim`` > 0, a privileged state of that width (the
+    asymmetric actor-critic); weights are drawn from ``gen``."""
 
     def __init__(self, gen: torch.Generator, obs_dim: int, act_dim: int,
                  pi_hid_sizes: Sequence[int], vf_hid_sizes: Sequence[int],
-                 init_noise_std: float = 1.0, activation: str = "elu"):
+                 init_noise_std: float = 1.0, activation: str = "elu",
+                 state_dim: int = 0):
         super().__init__()
         self.activation = activation
         actor, last = [], obs_dim
@@ -42,7 +44,7 @@ class ActorCritic(nn.Module):
             actor.append(_orthogonal_linear(last, h, np.sqrt(2.0), gen))
             last = h
         actor.append(_orthogonal_linear(last, act_dim, 0.01, gen))
-        critic, last = [], obs_dim
+        critic, last = [], (state_dim if state_dim > 0 else obs_dim)
         for h in vf_hid_sizes:
             critic.append(_orthogonal_linear(last, h, np.sqrt(2.0), gen))
             last = h

@@ -131,6 +131,14 @@ class PPO:
         init_noise_std = float(policy_cfg.get("init_noise_std", 1.0))
         if seed is None:
             seed = int(cfg_train.get("seed", 0))
+        # Asymmetric actor-critic (the env config's
+        # `asymmetric_observations`): the critic reads the privileged
+        # simulator state (task.privileged_state), the actor the
+        # DR-noised observations.
+        self.asymmetric = bool(getattr(self.task, "asymmetric_observations",
+                                       False))
+        self._state_dim = (int(self.task.state_dim) if self.asymmetric
+                           else 0)
         self._net_spec = (self.task.obs_dim, self.task.act_dim, pi_hid,
                           vf_hid, init_noise_std)
         self.actor_critic = _ActorCriticHandle(self)
@@ -141,8 +149,8 @@ class PPO:
         RL every iteration when ftuneRL is off)."""
         init_gen = torch.Generator().manual_seed(int(seed) + 12345)
         self.net = networks.ActorCritic(
-            init_gen, *self._net_spec,
-            activation=self.activation).to(self.device)
+            init_gen, *self._net_spec, activation=self.activation,
+            state_dim=self._state_dim).to(self.device)
         self.params = list(self.net.parameters())
         self.adam = adam_init(self.params)
         self.lr = torch.tensor(self.init_lr, device=self.device)
@@ -168,23 +176,36 @@ class PPO:
         return networks.sample_action(self.net, obs, self.gen)
 
     # ------------------------------------------------------------------ #
+    def _critic_input(self, env_state, obs):
+        """What the critic values: the observations, or the privileged
+        state of the envs they came from (asymmetric)."""
+        if self.asymmetric:
+            return self.task.privileged_state(env_state.task_state,
+                                              env_state.params)
+        return obs
+
     @torch.no_grad()
     def rollout(self, distr, env_state, obs):
         """``nsteps`` steps of all envs under the current policy; returns
         (env_state, obs, traj, last_val) with traj a dict of (T, N, ...)
-        tensors."""
+        tensors (with "cin", the critic's inputs, when asymmetric)."""
         keys = ["obs", "act", "logp", "val", "rew", "done"]
+        if self.asymmetric:
+            keys.append("cin")
         steps = {k: [] for k in keys}
         for _ in range(self.nsteps):
             act, logp = networks.sample_action(self.net, obs, self.gen)
-            val = networks.value(self.net, obs)
+            cin = self._critic_input(env_state, obs)
+            val = networks.value(self.net, cin)
             env_state, obs2, rew, done = env_step(
                 self.task, distr, env_state, act, self.vec_env.gen)
-            for k, v in zip(keys, (obs, act, logp, val, rew, done.float())):
+            for k, v in zip(keys, (obs, act, logp, val, rew, done.float(),
+                                   cin)):
                 steps[k].append(v)
             obs = obs2
         traj = {k: torch.stack(v) for k, v in steps.items()}
-        last_val = networks.value(self.net, obs)
+        last_val = networks.value(self.net,
+                                  self._critic_input(env_state, obs))
         return env_state, obs, traj, last_val
 
     def loss_fn(self, batch):
@@ -198,7 +219,7 @@ class PPO:
         pg1 = -adv * ratio
         pg2 = -adv * torch.clamp(ratio, 1.0 - clip, 1.0 + clip)
         pg_loss = torch.maximum(pg1, pg2).mean()
-        v = networks.value(net, batch["obs"])
+        v = networks.value(net, batch.get("cin", batch["obs"]))
         val_old, ret = batch["val"], batch["ret"]
         v_clipped = val_old + torch.clamp(v - val_old, -clip, clip)
         vf_loss = 0.5 * torch.maximum((v - ret) ** 2,
@@ -226,6 +247,8 @@ class PPO:
         data = {"obs": flat(traj["obs"]), "act": flat(traj["act"]),
                 "logp": flat(traj["logp"]), "val": flat(traj["val"]),
                 "adv": adv, "ret": flat(rets)}
+        if "cin" in traj:
+            data["cin"] = flat(traj["cin"])
         mb = n // self.nminibatches
         metrics = []
         for perm in perms:

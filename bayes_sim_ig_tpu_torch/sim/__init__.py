@@ -1,5 +1,7 @@
 """Vectorized tasks and the env factory."""
 
+import torch
+
 from .task import (
     Task, EnvState, VecEnv, env_step, env_full_reset, task_device,
     CLIP_OBSERVATIONS, CLIP_ACTIONS,
@@ -12,6 +14,7 @@ from .flyers import Ingenuity, Quadcopter
 from .franka_cabinet import FrankaCabinet
 from .humanoid import Humanoid
 from .pendulum import Pendulum
+from .shadow_hand import ShadowHand
 
 _TASK_REGISTRY = {
     "Ant": Ant,
@@ -23,10 +26,11 @@ _TASK_REGISTRY = {
     "Ingenuity": Ingenuity,
     "Pendulum": Pendulum,
     "Quadcopter": Quadcopter,
+    "ShadowHand": ShadowHand,
 }
 
 # Tasks of the JAX package that this package does not have yet.
-NOT_YET_PORTED = ("ShadowHand",)
+NOT_YET_PORTED = ()
 
 
 def register_task(name, cls):
@@ -40,20 +44,31 @@ def available_tasks():
 def make_env(task_name: str, cfg: dict, seed: int = 0,
              device="cuda") -> VecEnv:
     """Creates a vectorized env for a task on ``device``: the card unless
-    the caller asks for another (without a card the default raises)."""
+    the caller asks for another (without a card the default raises).
+
+    The env config's ``asymmetric_observations`` gives the PPO critic the
+    privileged simulator state (``Task.privileged_state``, as wide as the
+    task state's leaves per env: ``task.state_dim``) instead of the
+    observations."""
     if task_name not in _TASK_REGISTRY:
         raise NotImplementedError(
             f"Task '{task_name}' is not yet ported to "
             f"bayes_sim_ig_tpu_torch. Available: {available_tasks()}")
-    if cfg.get("env", {}).get("asymmetric_observations", False):
-        raise NotImplementedError("asymmetric_observations (the privileged "
-                                  "critic) is not yet ported")
-    return VecEnv(_TASK_REGISTRY[task_name](cfg, device=task_device(device)),
-                  seed=seed)
+    task = _TASK_REGISTRY[task_name](cfg, device=task_device(device))
+    task.asymmetric_observations = bool(
+        cfg.get("env", {}).get("asymmetric_observations", False))
+    if task.asymmetric_observations:
+        # The width from one env's initial state (init_state runs once).
+        params = torch.as_tensor(task.params_spec.defaults[None],
+                                 dtype=torch.float32, device=task.device)
+        state = task.init_state(torch.Generator(device=task.device), params)
+        task.state_dim = int(task.privileged_state(state, params).shape[1])
+    return VecEnv(task, seed=seed)
 
 
 __all__ = ["Task", "EnvState", "VecEnv", "env_step", "env_full_reset",
            "task_device", "Ant", "Anymal", "BallBalance", "Cartpole",
            "FrankaCabinet", "Humanoid", "Ingenuity", "Pendulum",
-           "Quadcopter", "make_env", "register_task", "available_tasks",
+           "Quadcopter", "ShadowHand", "make_env", "register_task",
+           "available_tasks",
            "NOT_YET_PORTED", "CLIP_OBSERVATIONS", "CLIP_ACTIONS"]

@@ -56,6 +56,11 @@ class Task:
     act_noise: Optional[NoiseConfig] = None
     # IG tasks reward the post-step state (post_physics_step semantics).
     reward_post_step: bool = True
+    # Asymmetric actor-critic (the env config's `asymmetric_observations`,
+    # set by make_env with `state_dim`): the PPO critic reads
+    # `privileged_state`, the actor the observations.
+    asymmetric_observations: bool = False
+    state_dim: int = 0
 
     def setup_noise(self, randomization_params: dict):
         """Parses optional 'observations'/'actions' noise subtrees."""
@@ -87,6 +92,13 @@ class Task:
         """(N,) bool mask of envs that must terminate before timeout."""
         return torch.zeros(state_batch_size(state), dtype=torch.bool,
                            device=state[0].device)
+
+    def privileged_state(self, task_state, params) -> torch.Tensor:
+        """(N, state_dim) privileged state for the asymmetric critic: the
+        noise-free simulator state, every field flattened per env."""
+        n = state_batch_size(task_state)
+        return torch.cat([x.reshape(n, -1).to(torch.float32)
+                          for x in task_state], dim=1)
 
 
 def state_batch_size(state) -> int:
@@ -270,3 +282,9 @@ class VecEnv:
             self.task, self._distr, self.state, actions, self.gen,
             self.max_episode_length)
         return obs, rew, done, {}
+
+    def get_state(self):
+        """(num_envs, state_dim) privileged state of the current episodes,
+        the critic's input under `asymmetric_observations`."""
+        return self.task.privileged_state(self.state.task_state,
+                                          self.state.params)

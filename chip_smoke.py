@@ -44,6 +44,16 @@ Phases (each prints its lines; any failure raises and exits non-zero):
        env-first); and at Humanoid's, BallBalance's, Anymal's and Ant's
        trees the tree-vs-dense A/B: the two tree kernels against the two
        SPD kernels on the same M made dense;
+     - the tree kernel's half-solves, L^-T (upsolve) and L^-1
+       (downsolve), the passes of the impulse contact pass, on
+       ShadowHand's dof tree at 1024 envs (K = 51, the 51 impulse rows,
+       and K = 1) and at 10000 envs (shadow_hand_more.yaml's width), a
+       random 30-dof tree and odd env counts, against their plain
+       versions, with the NaN policy (an env whose H is NaN comes out
+       non-finite, every other env bit for bit its clean run); at the
+       ShadowHand shapes their times against the plain versions, the
+       bound and the one-call yardstick solve_triangular(unitriangular)
+       on L made dense;
   4. the ADR loop on Ant at full width (1024 envs, 17 params,
      trainTrajLen 50, summary_corrdiff, MDNN [128, 128] x 10 components,
      PPO [256, 128, 64] with nsteps 16) for 2 ADR iterations through
@@ -64,17 +74,25 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      width (100 envs), for 2 ADR iterations; it launches no kernel;
   8. the ADR loop on each of Anymal (4000 envs, 13 params), Quadcopter
      (8192, 9), Ingenuity (4096, 9), BallBalance (128, 7) and
-     FrankaCabinet (2048, 19) at full width for 2 ADR iterations
-     (ADR_PHASES): checks the SPD factor and substitute kernels and no
-     tree kernel on the four dense tasks, the tree kernels and no SPD
-     kernel on BallBalance, and the same as phase 4; on Anymal also the
-     env step's wall and device time.
+     FrankaCabinet (2048, 19) at full width (ADR_PHASES; 2 ADR iterations,
+     1 on Quadcopter, Ingenuity and FrankaCabinet): checks the SPD
+     factor and substitute kernels and no tree kernel on the four dense
+     tasks, the tree kernels and no SPD kernel on BallBalance, and the
+     same as phase 4; on Anymal also the env step's wall and device time;
+  9. the ADR loop on ShadowHand at full width (1024 envs, 32 params,
+     89-dim obs, trainTrajLen 30, MDNN [128, 128] x 10, PPO [512, 256,
+     128] with nsteps 8) for 2 ADR iterations (ADR_PHASES): checks the
+     tree factor, substitute, upsolve and downsolve kernels and no SPD
+     kernel, the same as phase 4, and the env step's wall and device
+     time; then 20 steps of shadow_hand_grasp_full.yaml (2048 envs, the
+     211-dim full_state obs) under its grasp policy: the obs and the
+     force, torque and dof-force blocks finite, and the step time.
 Each ADR phase sets every kernel's launch count to 0 just before it runs
 and reads the counts just after. The line before the card's line is a
 JSON object with each kernel's numbers, its bound (ops/bounds.py: the
 larger of its bytes over 3.35 TB/s and its FLOPs over 67 TFLOP/s) and
-its library yardstick's time; the last line is
-``{"ok": true, "device": {...}}``.
+its library yardstick's time; the line before that the script's total
+seconds; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -160,6 +178,21 @@ TREE_NAN = [("humanoid", 4096), ("ball_balance", 128), ("ball_balance", 129)]
 TREE_AB = [("humanoid", 4096), ("ball_balance", 128), ("anymal", 4000),
            ("ant", 1024)]
 TREE_RHS = 4
+# The half-solves at the impulse pass's shapes, (tree, N, K): ShadowHand's
+# tree at its 1024 envs with K = 51 (the 35 normal and 16 friction rows,
+# up-solved once a control step) and K = 1 (the down-solve of every
+# substep), the same at shadow_hand_more.yaml's 10000 envs; then a random
+# 30-dof tree and env counts that leave a partial block.
+HALF_SHAPES = [("shadow_hand", 1024, 51), ("shadow_hand", 1024, 1),
+               ("shadow_hand", 10000, 51), ("shadow_hand", 10000, 1),
+               ("random30", 1027, 4), ("shadow_hand", 1025, 3),
+               ("shadow_hand", 17, 51)]
+# The shapes each entry point is timed at (the kernels line's own times
+# are the first): the upsolve at K = 51, the downsolve at K = 1.
+HALF_TIMED = {"upsolve": [("shadow_hand", 1024, 51),
+                          ("shadow_hand", 10000, 51)],
+              "downsolve": [("shadow_hand", 1024, 1),
+                            ("shadow_hand", 10000, 1)]}
 
 
 def phase_device():
@@ -222,25 +255,34 @@ def _median_ms(fn, n=50, warmup=5):
     return statistics.median(times)
 
 
-def _device_ms(fn, n=50, traces=3):
-    """Mean device time per call of the kernels ``fn`` launches, from
-    torch.profiler traces of n calls: the largest of ``traces`` traces (a
-    trace that drops kernel records reads low, never high); None when no
-    trace holds device time."""
+def _device_profile(fn, n=50, traces=3):
+    """Mean device time per call of the kernels ``fn`` launches and their
+    count per call (kernels, copies and fills), from torch.profiler traces
+    of n calls: the trace with the largest device time of ``traces`` (a
+    trace that drops kernel records reads low, never high); (None, None)
+    when no trace holds device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    best = None
+    best, count = None, None
     for _ in range(traces):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(getattr(e, "self_device_time_total", 0.0)
-                       for e in prof.key_averages())
-        if total_us > 0:
-            best = max(best or 0.0, total_us / 1000.0 / n)
-    return best
+        events = [e for e in prof.key_averages()
+                  if getattr(e, "self_device_time_total", 0.0) > 0]
+        total_us = sum(e.self_device_time_total for e in events)
+        if total_us > 0 and total_us / 1000.0 / n > (best or 0.0):
+            best = total_us / 1000.0 / n
+            count = sum(e.count for e in events) / n
+    return best, count
+
+
+def _device_ms(fn, n=50, traces=3):
+    """Mean device time per call of ``fn``'s kernels (``_device_profile``);
+    None when no trace holds device time."""
+    return _device_profile(fn, n, traces)[0]
 
 
 def _fmt(v):
@@ -551,8 +593,10 @@ def _tree_chains(tree):
     from bayes_sim_ig_tpu_torch.sim.anymal import build_anymal_model
     from bayes_sim_ig_tpu_torch.sim.ball_balance import build_bbot_model
     from bayes_sim_ig_tpu_torch.sim.humanoid import build_humanoid_model
+    from bayes_sim_ig_tpu_torch.sim.shadow_hand import build_hand_model
     models = {"humanoid": build_humanoid_model, "ant": build_ant_model,
-              "anymal": build_anymal_model, "ball_balance": build_bbot_model}
+              "anymal": build_anymal_model, "ball_balance": build_bbot_model,
+              "shadow_hand": lambda: build_hand_model()[0]}
     if tree in models:
         return models[tree]().dof_anc_chains
     if tree == "chain40":
@@ -734,6 +778,116 @@ def phase_tree_kernel():
     return out
 
 
+def _dense_l(ts, chains, H):
+    """L (N, nv, nv) env-first, unit diagonal, from the factor's pairs."""
+    tt = ts.tree_tables(chains)
+    N = H.shape[1]
+    L = torch.zeros(N, tt.nv, tt.nv, device=H.device)
+    k = torch.as_tensor([p[0] for p in tt.pairs], device=H.device)
+    i = torch.as_tensor([p[1] for p in tt.pairs], device=H.device)
+    off = k != i
+    L[:, k[off], i[off]] = H[off].T
+    eye = torch.arange(tt.nv, device=H.device)
+    L[:, eye, eye] = 1.0
+    return L
+
+
+def _half_times(ts, bounds, entry, chains, H, b, shape):
+    """One half-solve at a path shape: the kernel against its plain
+    version, the bound, and solve_triangular(unitriangular) on L made
+    dense (L^T for the upsolve), env-first and contiguous (the permutes
+    before the timing), checked first against the plain version."""
+    kernel = getattr(ts, f"ltdl_{entry}_cuda")
+    plain = getattr(ts, f"ltdl_{entry}_plain")
+    t = _times(lambda: kernel(chains, H, b), lambda: plain(chains, H, b))
+    N, K = H.shape[1], (b.shape[0] if b.ndim == 3 else 1)
+    t["bound"] = bounds.tree_half_solve(chains, N, K)
+    L = _dense_l(ts, chains, H)
+    A = (L.transpose(1, 2) if entry == "upsolve" else L).contiguous()
+    rhs = (b if b.ndim == 3 else b[None]).permute(2, 1, 0).contiguous()
+    upper = entry == "upsolve"
+
+    def library():
+        return torch.linalg.solve_triangular(A, rhs, upper=upper,
+                                             unitriangular=True)
+    got = library().permute(2, 1, 0).reshape(b.shape)
+    _tree_check(f"library solve_triangular vs the plain {entry}", got,
+                plain(chains, H, b), shape)
+    t["library"] = _library_times(library)
+    print(f"[kernel] tree_ltdl_{entry} {shape}: {_time_line(t)} | "
+          f"{_bound_line(t['bound'])} | library "
+          f"{_library_line('solve_triangular(unitriangular)', t['library'])}",
+          flush=True)
+    return t
+
+
+def _half_nan_policy(ts, tree, N, K):
+    """An env whose factor went non-finite (H NaN in env 5) comes out
+    non-finite from both half-solves, at the plain versions' NaN
+    positions; every other env bit for bit its clean run."""
+    chains = _tree_chains(tree)
+    Mp, _, _, _ = _tree_inputs(chains, N)
+    H, _ = ts.ltdl_factor_cuda(chains, Mp)
+    b = torch.randn(K, len(chains), N, device=H.device,
+                    generator=torch.Generator(device=H.device).manual_seed(1))
+    bad = H.clone()
+    bad[:, 5] = float("nan")
+    others = torch.ones(N, dtype=torch.bool, device=H.device)
+    others[5] = False
+    ok = True
+    for entry in ("upsolve", "downsolve"):
+        kernel = getattr(ts, f"ltdl_{entry}_cuda")
+        plain = getattr(ts, f"ltdl_{entry}_plain")
+        clean, got = kernel(chains, H, b), kernel(chains, bad, b)
+        torch.cuda.synchronize()
+        ok &= (not bool(torch.isfinite(got[..., 5]).all())
+               and torch.equal(torch.isnan(got),
+                               torch.isnan(plain(chains, bad, b)))
+               and torch.equal(got[..., others], clean[..., others]))
+    print(f"[kernel] tree half-solve NaN policy ({tree}, N {N}, K {K}): H "
+          f"NaN in env 5 -> non-finite in its column only, at the plain "
+          f"versions' positions, other envs bit-equal: "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        raise AssertionError(f"the half-solves break the NaN policy on "
+                             f"{tree} at N {N}")
+
+
+def phase_half_solves():
+    from bayes_sim_ig_tpu_torch.ops import bounds
+    from bayes_sim_ig_tpu_torch.ops import tree_solve as ts
+    worst = collections.defaultdict(float)
+    timed = collections.defaultdict(dict)
+    for tree, N, K in HALF_SHAPES:
+        chains = _tree_chains(tree)
+        shape = f"({tree}: nv {len(chains)}, E {ts.tree_tables(chains).E}, " \
+                f"N {N}, K {K})"
+        Mp, _, _, _ = _tree_inputs(chains, N)
+        H, _ = ts.ltdl_factor_cuda(chains, Mp)
+        b = torch.randn(K, len(chains), N, device=H.device,
+                        generator=torch.Generator(
+                            device=H.device).manual_seed(K))
+        b = b[0] if K == 1 else b
+        for entry in ("upsolve", "downsolve"):
+            kernel = getattr(ts, f"ltdl_{entry}_cuda")
+            plain = getattr(ts, f"ltdl_{entry}_plain")
+            worst[entry] = max(worst[entry], _tree_check(
+                f"tree_ltdl_{entry}", kernel(chains, H, b),
+                plain(chains, H, b), shape))
+            if (tree, N, K) in HALF_TIMED[entry]:
+                timed[entry][(tree, N, K)] = _half_times(
+                    ts, bounds, entry, chains, H, b, shape)
+    for tree, N in (("shadow_hand", 1024), ("random30", 1027)):
+        _half_nan_policy(ts, tree, N, 3)
+    out = {}
+    for entry, shapes in HALF_TIMED.items():
+        t = timed[entry]
+        out[entry] = {"max_abs_err": worst[entry], **t[shapes[0]],
+                      "times": {f"{tree} N={N} K={K}": _time_entry(v)
+                                for (tree, N, K), v in t.items()}}
+    return out
+
+
 def _on_cuda(tensors, what):
     bad = [tuple(t.shape) for t in tensors if t.device.type != "cuda"]
     if bad:
@@ -795,7 +949,7 @@ class _PhaseTimer:
         return ", ".join(f"{k} {v:.2f} s" for k, v in self.secs.items())
 
 
-def _run_adr(task, cfg, name):
+def _run_adr(task, cfg, name, iters=2):
     from bayes_sim_ig_tpu_torch import bayes_sim_main
     run_dir = os.path.join(RUN_DIR, name)
     shutil.rmtree(run_dir, ignore_errors=True)
@@ -818,14 +972,18 @@ def _run_adr(task, cfg, name):
     secs = time.perf_counter() - t0
     launches = _read_launches()
     _on_cuda(list(out["bsim"].model.net.parameters()), "BayesSim model")
-    _on_cuda(list(out["bsim"]._refit_model.net.parameters()), "refit MDNN")
+    # The refit combines the posteriors of the surrogate-real trajectories
+    # accumulated over iterations: the first iteration has one.
+    if iters > 1:
+        _on_cuda(list(out["bsim"]._refit_model.net.parameters()),
+                 "refit MDNN")
     _on_cuda(list(out["ppo"].net.parameters()), "PPO policy")
     st = out["env"].state
     _on_cuda(list(st.task_state) + [st.params, st.progress, st.reset_buf,
                                     st.obs_corr, st.act_corr], "env state")
     dim = out["env"].task.params_spec.dim
     ckpt = os.path.join(out["logdir"], "checkpoints")
-    for it in (0, 1):
+    for it in range(iters):
         with open(os.path.join(ckpt, f"posterior_{it}.pkl"), "rb") as f:
             post = pickle.load(f)
         for k in ("weights", "means", "covs"):
@@ -833,7 +991,7 @@ def _run_adr(task, cfg, name):
                 raise AssertionError(f"{name} posterior_{it} {k} is not "
                                      f"finite")
         assert post["means"].shape[1] == dim, post["means"].shape
-    assert len(out["iter_secs"]) == 2
+    assert len(out["iter_secs"]) == iters
     return out, launches, secs, timer
 
 
@@ -889,11 +1047,13 @@ def phase_adr_pendulum():
           flush=True)
 
 
-def _env_step_profile(env, steps=20):
-    """One env step at the phase's width with zero actions: wall ms per step
-    (host clock, synchronized), device ms per step (torch.profiler, the
-    largest of three traces) and the device's busy share of the wall."""
-    act = torch.zeros(env.num_envs, env.task.act_dim, device="cuda:0")
+def _env_step_profile(env, steps=20, act=None):
+    """One env step at the phase's width (zero actions unless ``act``):
+    wall ms per step (host clock, synchronized), device ms per step
+    (torch.profiler, the largest of three traces) and the device's busy
+    share of the wall."""
+    if act is None:
+        act = torch.zeros(env.num_envs, env.task.act_dim, device="cuda:0")
     for _ in range(3):
         env.step(act)
     torch.cuda.synchronize()
@@ -902,58 +1062,66 @@ def _env_step_profile(env, steps=20):
         env.step(act)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / steps
-    dev = _device_ms(lambda: env.step(act), n=steps)
-    return {"wall_ms": wall, "dev_ms": dev,
+    dev, kernels = _device_profile(lambda: env.step(act), n=steps)
+    return {"wall_ms": wall, "dev_ms": dev, "kernels": kernels,
             "busy": None if dev is None else dev / wall}
 
 
 # The ADR phases of the articulated tasks: (task, config stem, numEnvs, DR
 # dims, PPO widths, nsteps, trainTrajLen, summarizer, the kernels its
-# physics launches, trainTrajs after the cut, env edits). Each runs through
-# bayes_sim_main.main at the config's widths for 2 ADR iterations of 5 PPO
-# iterations; trainTrajs is cut to 1000 (Ant, Humanoid: one collection
-# round), 2000 or 512 (BallBalance, with 128 envs), and a surrogate-real
-# episode longer than 1000 steps to 1000 (Anymal: episodeLength_s 50 ->
-# 1000/60; Ingenuity: maxEpisodeLength 2000 -> 1000).
+# physics launches, trainTrajs after the cut, env edits, ADR iterations).
+# Each runs through bayes_sim_main.main at the config's widths for 2 ADR
+# iterations of 5 PPO iterations (1 on Quadcopter, Ingenuity and
+# FrankaCabinet, which no benchmark cell names, to keep the script inside
+# its time with ShadowHand's phase); trainTrajs is cut to 1000 (Ant,
+# Humanoid, ShadowHand: one collection round), 2000 or 512 (BallBalance,
+# with 128 envs), and a surrogate-real episode longer than 1000 steps to
+# 1000 (Anymal: episodeLength_s 50 -> 1000/60; Ingenuity:
+# maxEpisodeLength 2000 -> 1000).
 _SPD = ("spd_factor_lanes", "spd_substitute_lanes")
 _TREE = ("tree_ltdl_factor", "tree_ltdl_substitute")
+_HALF = ("tree_ltdl_upsolve", "tree_ltdl_downsolve")
 ADR_PHASES = [
     ("Ant", "ant", 1024, 17, [256, 128, 64], 16, 50,
-     "summary_corrdiff", _SPD, 1000, {}),
+     "summary_corrdiff", _SPD, 1000, {}, 2),
     ("Humanoid", "humanoid", 4096, 37, [400, 200, 100], 32, 50,
-     "summary_corrdiff", _TREE, 1000, {}),
+     "summary_corrdiff", _TREE, 1000, {}, 2),
     ("Anymal", "anymal", 4000, 13, [256, 128, 64], 24, 50,
-     "summary_corrdiff", _SPD, 2000, {"episodeLength_s": 1000 / 60}),
+     "summary_corrdiff", _SPD, 2000, {"episodeLength_s": 1000 / 60}, 2),
     ("Quadcopter", "quadcopter", 8192, 9, [256, 128, 64], 16, 10,
-     "summary_start", _SPD, 2000, {}),
+     "summary_start", _SPD, 2000, {}, 1),
     ("Ingenuity", "ingenuity", 4096, 9, [256, 128, 64], 16, 10,
-     "summary_start", _SPD, 2000, {"maxEpisodeLength": 1000}),
+     "summary_start", _SPD, 2000, {"maxEpisodeLength": 1000}, 1),
     ("BallBalance", "ball_balance", 128, 7, [128, 64, 32], 16, 20,
-     "summary_corrdiff", _TREE, 512, {}),
+     "summary_corrdiff", _TREE, 512, {}, 2),
     ("FrankaCabinet", "franka_cabinet", 2048, 19, [256, 128, 64], 16, 30,
-     "summary_corrdiff", _SPD, 2000, {}),
+     "summary_corrdiff", _SPD, 2000, {}, 1),
+    ("ShadowHand", "shadow_hand", 1024, 32, [512, 256, 128], 8, 30,
+     "summary_corrdiff", _TREE + _HALF, 1000, {}, 2),
 ]
+# The phases whose env step is profiled after the loop.
+STEP_PROFILED = ("Anymal", "ShadowHand")
 
 
 def phase_adr(task, stem, envs, dim, widths, nsteps, traj_len, summarizer,
-              kernels, train_trajs, env_edits):
+              kernels, train_trajs, env_edits, iters):
     """One of ADR_PHASES at full width (cfg/<stem>.yaml and
     cfg/train/ppo_<stem>.yaml), cut in depth only (see ADR_PHASES): checks
     the widths, that its physics launched exactly the kernels of its solve
     (the SPD factor and substitute on the dense path, the tree kernels on
-    Humanoid's tree and BallBalance's forest) and no other, the posteriors
-    and the card."""
+    Humanoid's tree and BallBalance's forest, with the half-solves on
+    ShadowHand's) and no other, the posteriors and the card."""
     from bayes_sim_ig_tpu_torch.utils.args import load_config
     cfg = load_config(os.path.join(HERE, "bayes_sim_ig_tpu_torch", "cfg",
                                    f"{stem}.yaml"))
-    cfg["bayessim"].update(trainTrajs=train_trajs, realIters=2)
+    cfg["bayessim"].update(trainTrajs=train_trajs, realIters=iters)
     cfg["env"].update(env_edits)
     bs = cfg["bayessim"]
     assert cfg["env"]["numEnvs"] == envs and bs["trainTrajLen"] == traj_len
     assert bs["modelClass"] == "MDNN" and bs["components"] == 10
     assert bs["hiddenLayers"] == [128, 128]
     assert bs["summarizerFxn"] == summarizer
-    out, launches, secs, timer = _run_adr(task, cfg, stem)
+    out, launches, secs, timer = _run_adr(task, cfg, stem, iters)
     others = [k for k in launches if k not in kernels]
     for entry in kernels:
         if launches[entry] <= 0:
@@ -972,17 +1140,65 @@ def phase_adr(task, stem, envs, dim, widths, nsteps, traj_len, summarizer,
     ppo = out["ppo"]
     assert [l.out_features for l in ppo.net.actor][:3] == widths
     assert ppo.nsteps == nsteps and ppo.activation == "elu"
-    step = _env_step_profile(env) if task == "Anymal" else None
-    print(f"[adr] {task} {envs} envs, nv {env.task.model.nv}, 2 ADR "
-          f"iterations in {secs:.2f} s (per iteration: "
+    if task == "ShadowHand":
+        assert env.task.obs_dim == 89 and env.task.act_dim == 20
+    step = _env_step_profile(env) if task in STEP_PROFILED else None
+    print(f"[adr] {task} {envs} envs, nv {env.task.model.nv}, {iters} ADR "
+          f"iteration(s) in {secs:.2f} s (per iteration: "
           f"{', '.join(f'{s:.2f}' for s in out['iter_secs'])} s; phases: "
           f"{timer.line()}); launches {launches}; {dim}-dim posteriors "
           f"finite; model, refit, policy and env tensors on cuda"
           + ("" if step is None else
              f"; env step {step['wall_ms']:.2f} ms wall, device "
-             f"{_fmt(step['dev_ms'])} (busy share {step['busy']:.3f})"),
+             f"{_fmt(step['dev_ms'])} (busy share {step['busy']:.3f}), "
+             f"{step['kernels']} device operations a step"),
           flush=True)
     return launches
+
+
+def phase_grasp_full_probe(steps=20):
+    """20 steps of cfg/shadow_hand_grasp_full.yaml at its 2048 envs (the
+    211-dim full_state obs: dof forces, fingertip states and force/torque
+    sensors from the impulse pass) under its grasp collection policy,
+    params drawn from the spec's box: every obs and the force, torque and
+    dof-force blocks finite; the step's wall and device time."""
+    from bayes_sim_ig_tpu_torch.distributions import Uniform, to_device_distr
+    from bayes_sim_ig_tpu_torch.sim import make_env
+    from bayes_sim_ig_tpu_torch.utils.args import load_config
+    from bayes_sim_ig_tpu_torch.utils.collect import get_collect_policy
+    cfg = load_config(os.path.join(HERE, "bayes_sim_ig_tpu_torch", "cfg",
+                                   "shadow_hand_grasp_full.yaml"))
+    assert cfg["env"]["numEnvs"] == 2048
+    env = make_env("ShadowHand", cfg, seed=0, device="cuda:0")
+    task = env.task
+    assert task.obs_dim == 211 and task.full_state_obs
+    spec = task.params_spec
+    env.set_distr(to_device_distr(Uniform(spec.lows, spec.highs),
+                                  device="cuda:0"))
+    env.reset()
+    policy = get_collect_policy(cfg["bayessim"]["collectPolicy"], task)
+    act = policy(torch.zeros(env.num_envs, task.act_dim, device="cuda:0"),
+                 torch.Generator(device="cuda:0").manual_seed(0))
+    for _ in range(steps):
+        obs, _, _, _ = env.step(act)
+    st = env.state.task_state
+    raw = task.observe(st, env.state.params)
+    torch.cuda.synchronize()
+    for name, x in (("obs", obs), ("raw obs", raw), ("tip_force",
+                    st.tip_force), ("tip_torque", st.tip_torque),
+                    ("dof_force", st.dof_force)):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"ShadowHand full_state {name} not finite")
+    assert obs.shape == (2048, 211)
+    step = _env_step_profile(env, act=act)
+    print(f"[probe] ShadowHand full_state (shadow_hand_grasp_full.yaml) 2048 "
+          f"envs, {steps} steps of policy_grasp: obs (2048, 211), force "
+          f"|max| {float(st.tip_force.abs().max()):.3f}, torque |max| "
+          f"{float(st.tip_torque.abs().max()):.4f}, dof force |max| "
+          f"{float(st.dof_force.abs().max()):.3f}, all finite; env step "
+          f"{step['wall_ms']:.2f} ms wall, device {_fmt(step['dev_ms'])} "
+          f"(busy share {step['busy']:.3f}), {step['kernels']} device "
+          f"operations a step", flush=True)
 
 
 def _kernel_entry(name, source, replaces, launches, t, library_call=None,
@@ -1007,17 +1223,20 @@ def _kernel_entry(name, source, replaces, launches, t, library_call=None,
 
 
 def main():
+    t0 = time.perf_counter()
     smi = phase_device()
     phase_build()
     rff = phase_rff_kernel()
     spd = phase_spd_kernel()
     tree = phase_tree_kernel()
+    half = phase_half_solves()
     ant, humanoid, *rest = ADR_PHASES
     runs = {"Ant": phase_adr(*ant), "Cartpole": phase_adr_cartpole(),
             "Humanoid": phase_adr(*humanoid)}
     phase_adr_pendulum()
     for spec in rest:
         runs[spec[0]] = phase_adr(*spec)
+    phase_grasp_full_probe()
 
     def by_task(kernel):
         return {task: c[kernel] for task, c in runs.items() if c[kernel]}
@@ -1043,6 +1262,18 @@ def main():
             replaces, by_task(f"tree_ltdl_{entry}"), t,
             dense_pair_ms=t["dense_pair"]["ms"],
             dense_pair_dev_ms=t["dense_pair"]["dev_ms"], times=t["times"]))
+    # The half-solves: the substitute kernel's up and down passes alone.
+    for entry, replaces in (
+            ("upsolve", "bayes_sim_ig_tpu/ops/tree_solve.py:146"),
+            ("downsolve", "bayes_sim_ig_tpu/ops/tree_solve.py:163")):
+        t = half[entry]
+        kernels.append(_kernel_entry(
+            f"tree_ltdl_{entry}", "bayes_sim_ig_tpu_torch/csrc/tree_ltdl.cu",
+            replaces, by_task(f"tree_ltdl_{entry}"), t,
+            library_call="torch.linalg.solve_triangular(unitriangular)",
+            times=t["times"]))
+    print(f"[total] chip_smoke.py ran in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {smi}")
     print(json.dumps({"ok": True, "device": {

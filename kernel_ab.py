@@ -1,10 +1,20 @@
-"""A/B of the port's SPD and tree kernels against their one-thread-per-env
-sources, on one CUDA card, in one process.
+"""A/B of the port's SPD and tree kernels against older sources, on one
+CUDA card, in one process.
 
     mkdir -p runs/ab/old
     git show <rev>:bayes_sim_ig_tpu_torch/csrc/spd_lanes.cu > runs/ab/old/spd_lanes.cu
     git show <rev>:bayes_sim_ig_tpu_torch/csrc/tree_ltdl.cu > runs/ab/old/tree_ltdl.cu
     python3 kernel_ab.py runs/ab/old
+
+    python3 kernel_ab.py --tree-same runs/ab/old
+
+The second form takes an older ``tree_ltdl.cu`` with the current C
+interface of the factor and the substitute (the host-built table of
+``ops/tree_solve.py::kernel_table``): it holds both kernels to the old
+ones bit for bit (factor H and D; the substitute at K = 1 and K = 4) at
+Humanoid's tree (4096 envs) and BallBalance's forest (128 envs), times
+them in turns (old, new, new, old) and writes
+chiprun_out/kernel_ab_tree_same.json.
 
 The old sources must expose the one-thread-per-env C interface (the SPD
 entries as today; the tree entries take the table [parent (nv), off
@@ -38,6 +48,9 @@ from bayes_sim_ig_tpu_torch.ops import bounds, build, spd_kernel as sk
 from bayes_sim_ig_tpu_torch.ops import tree_solve as ts
 
 OUT = os.path.join(cs.HERE, "chiprun_out", "kernel_ab.json")
+OUT_SAME = os.path.join(cs.HERE, "chiprun_out", "kernel_ab_tree_same.json")
+# (tree, N) of the same-interface tree A/B: the paths' trees.
+TREE_SAME = [("humanoid", 4096), ("ball_balance", 128)]
 SPD_AB = [(14, 1024), (18, 4000)]
 
 
@@ -266,7 +279,68 @@ def floors():
     return out
 
 
+def tree_same(old_dir):
+    """The current tree kernels against an older source of the same C
+    interface: bit for bit, then timed in turns."""
+    old = _build_old(old_dir, "tree_ltdl")
+    ts._kernel_fns()
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    old.tree_ltdl_factor_f32.argtypes = [ptr, i32, i32, i32, i32, i32, ptr,
+                                         ptr, ptr, i32, ptr]
+    old.tree_ltdl_substitute_f32.argtypes = [ptr, i32, i32, i32, i32, i32,
+                                             ptr, ptr, ptr, ptr, i32, i32,
+                                             ptr]
+    out = {}
+    for tree, N in TREE_SAME:
+        chains = cs._tree_chains(tree)
+        tt = ts.tree_tables(chains)
+        table = ts._table_args(tt, torch.device("cuda:0"))
+        Mp, _, b, bk = cs._tree_inputs(chains, N)
+        H, D = ts.ltdl_factor_plain(chains, Mp)
+
+        def old_factor():
+            Ho, Do = torch.empty_like(Mp), Mp.new_empty(tt.nv, N)
+            _call(old.tree_ltdl_factor_f32, *table, Mp.data_ptr(),
+                  Ho.data_ptr(), Do.data_ptr(), N)
+            return Ho, Do
+
+        def old_sub(rhs=b):
+            x = torch.empty_like(rhs)
+            k = rhs.shape[0] if rhs.ndim == 3 else 1
+            _call(old.tree_ltdl_substitute_f32, *table, H.data_ptr(),
+                  D.data_ptr(), rhs.data_ptr(), x.data_ptr(), k, N)
+            return x
+
+        def new_sub(rhs=b):
+            return ts.ltdl_substitute_cuda(chains, (H, D), rhs)
+        same = {"factor": all(torch.equal(o, n) for o, n in zip(
+                    old_factor(), ts.ltdl_factor_cuda(chains, Mp))),
+                "substitute K=1": torch.equal(old_sub(b), new_sub(b)),
+                f"substitute K={cs.TREE_RHS}": torch.equal(old_sub(bk),
+                                                           new_sub(bk))}
+        torch.cuda.synchronize()
+        shape = f"({tree}: nv {tt.nv}, E {tt.E}, N {N})"
+        print(f"[ab] tree kernels {shape} old source vs new, bit for bit: "
+              f"{same}", flush=True)
+        if not all(same.values()):
+            raise AssertionError(f"the tree kernels changed results at "
+                                 f"{shape}: {same}")
+        res = _ab(f"tree_ltdl_substitute K=1 {shape}", old_sub, new_sub,
+                  lambda: ts.ltdl_substitute_plain(chains, (H, D), b), None,
+                  bounds.tree_substitute(chains, N), lambda: None)
+        out[f"{tree} N={N}"] = {"bit_for_bit": same, "substitute": res}
+    return out
+
+
 def main(argv):
+    if len(argv) == 2 and argv[0] == "--tree-same":
+        smi = cs.phase_device()
+        out = {"card": smi, "tree_same": tree_same(argv[1])}
+        os.makedirs(os.path.dirname(OUT_SAME), exist_ok=True)
+        with open(OUT_SAME, "w") as f:
+            json.dump(out, f, indent=1)
+        print(f"[ab] wrote {OUT_SAME}; card {smi}")
+        return
     if len(argv) != 1:
         raise SystemExit(__doc__)
     smi = cs.phase_device()

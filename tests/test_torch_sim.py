@@ -184,8 +184,10 @@ def test_device_mog_cholesky_layout_matches_jax():
 
 
 def test_make_env_refuses_tasks_not_yet_ported():
+    """A task neither package has is refused (ShadowHand, the last task
+    of the JAX package, is ported)."""
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        make_env("ShadowHand", _cfg(), device="cpu")
+        make_env("Dactyl", _cfg(), device="cpu")
 
 
 def test_make_env_defaults_to_the_card(monkeypatch):

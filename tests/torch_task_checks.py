@@ -33,8 +33,13 @@ def load_cfg(stem, num_envs=None):
     return cfg
 
 
-def config_copies_match(stem):
-    for rel in (f"{stem}.yaml", os.path.join("train", f"ppo_{stem}.yaml")):
+def config_copies_match(stem, with_train=True):
+    """The port's copy of cfg/<stem>.yaml (and of its PPO config) loads
+    equal to the JAX package's."""
+    rels = [f"{stem}.yaml"]
+    if with_train:
+        rels.append(os.path.join("train", f"ppo_{stem}.yaml"))
+    for rel in rels:
         with open(os.path.join(REPO, "bayes_sim_ig_tpu", "cfg", rel)) as a, \
                 open(os.path.join(REPO, "bayes_sim_ig_tpu_torch", "cfg",
                                   rel)) as b:
