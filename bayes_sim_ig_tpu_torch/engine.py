@@ -7,7 +7,7 @@ constants, chunked-training contract, model-class string parsing
 multi-real-trajectory posterior combination (resample 1e4 points from the
 per-trajectory mixtures, fit an unconditional MDNN, read off its single
 conditional mixture). Every model tensor lives on ``device``, the refit's
-included.
+included: the card unless the caller asks for the CPU (``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 from .distributions import pdf
 from .models import MDNN, get_model_class
 from .summarizers import get_summarizer
+from .utils.device import resolve_device
 
 
 class BayesSim:
@@ -30,13 +31,14 @@ class BayesSim:
 
     def __init__(self, model_cfg, obs_dim, act_dim, params_dim, params_lows,
                  params_highs, prior=None, proposal=None, seed=0,
-                 device="cpu", **kwargs):
+                 device="cuda", **kwargs):
         """model_cfg is the ``bayessim`` section of the task yaml; the
         summarizer's output dimension is probed by running it on zeros of
-        shape (1, trainTrajLen + 1, obs/act_dim)."""
+        shape (1, trainTrajLen + 1, obs/act_dim). ``device`` defaults to
+        the card and raises without one (``resolve_device``)."""
         self.prior = prior
         self.proposal = proposal
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._refit_model = None
         model_class = model_cfg["modelClass"]
         self.summarizer_fxn = get_summarizer(model_cfg["summarizerFxn"])

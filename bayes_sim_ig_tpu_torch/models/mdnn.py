@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..distributions import pdf
+from ..utils.device import resolve_device
 
 LL_LIMIT = 1.0e5     # limit log likelihood to avoid large gradients
 MIN_WEIGHT = 1.0e-5  # minimum component weight to keep updates alive
@@ -180,12 +181,13 @@ def mdn_train_step(model, optimizer, x_train, y_train, ids, noise):
 class MDNN:
     """Stateful wrapper with the reference MDNN surface (run_training /
     predict_MoGs / normalize_samples). ``self.net`` holds the layers on
-    ``device``; ``_features`` maps inputs to the net's input (identity
-    here, RFF in MDRFF)."""
+    ``device``, the card unless the caller asks for the CPU (without a card
+    the default raises); ``_features`` maps inputs to the net's input
+    (identity here, RFF in MDRFF)."""
 
     def __init__(self, input_dim, output_dim, output_lows, output_highs,
                  n_gaussians, full_covariance, hidden_layers, activation,
-                 lr, seed=0, device="cpu", **kwargs):
+                 lr, seed=0, device="cuda", **kwargs):
         self.input_dim = int(input_dim)
         self.output_dim = int(output_dim)
         self.n_gaussians = int(n_gaussians)
@@ -196,7 +198,7 @@ class MDNN:
                              f"{sorted(_ACTIVATIONS)}")
         self.activation = activation
         self.lr = float(lr)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.output_lows = None
         self.output_highs = None
         if output_lows is not None:

@@ -2,19 +2,21 @@
 
 Each library is compiled by ``nvcc`` at first use into
 ``build/torch_kernels/`` at the root of the checkout, under a file name
-keyed by a hash of its sources and flags, so an edited source builds
-anew and an unchanged one is loaded as it is. The sources expose plain
-C entry points, bound with ``ctypes`` (no PyTorch headers: such a build
-takes seconds, not minutes).
+keyed by a hash of its sources, csrc/'s headers and the flags, so an
+edited source builds anew and an unchanged one is loaded as it is. The
+sources expose plain C entry points, bound with ``ctypes`` (no PyTorch
+headers: such a build takes seconds, not minutes).
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.realpath(__file__)))
@@ -25,6 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _LIBS: dict = {}
+_LOCKS: dict = {}
 # Seconds and compiler output of each build done by this process, by name.
 BUILD_LOG: dict = {}
 
@@ -45,8 +48,10 @@ def find_nvcc() -> str:
 
 
 def _lib_path(name: str, sources) -> str:
+    """Keyed by the flags, the sources and every header in csrc/."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    for src in [*sources, *headers]:
         with open(src, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}_{h.hexdigest()[:16]}.so")
@@ -54,10 +59,15 @@ def _lib_path(name: str, sources) -> str:
 
 def load_library(name: str, sources) -> ctypes.CDLL:
     """Compiles ``sources`` (paths under csrc/) into lib ``name`` unless a
-    build of the same sources exists, then loads it with ctypes."""
-    lib = _LIBS.get(name)
-    if lib is not None:
-        return lib
+    build of the same sources exists, then loads it with ctypes. Threads
+    asking for one library wait for a single build."""
+    with _LOCKS.setdefault(name, threading.Lock()):
+        if name not in _LIBS:
+            _LIBS[name] = _load(name, sources)
+        return _LIBS[name]
+
+
+def _load(name: str, sources) -> ctypes.CDLL:
     sources = [os.path.join(CSRC_DIR, s) for s in sources]
     path = _lib_path(name, sources)
     if not os.path.exists(path):
@@ -73,6 +83,4 @@ def load_library(name: str, sources) -> ctypes.CDLL:
         os.replace(tmp, path)  # atomic: concurrent builders never clash
         BUILD_LOG[name] = {"seconds": time.perf_counter() - t0,
                            "ptxas": proc.stderr.strip()}
-    lib = ctypes.CDLL(path)
-    _LIBS[name] = lib
-    return lib
+    return ctypes.CDLL(path)

@@ -19,9 +19,11 @@ Two forms of every function:
     D (nv, N)), right-hand sides (nv, N) or (K, nv, N). ``tree_factor``,
     ``tree_substitute`` and the half-solves ``tree_upsolve`` (L^-T) and
     ``tree_downsolve`` (L^-1) run the plain version on a CPU tensor and
-    launch the hand-written kernel of ``csrc/tree_ltdl.cu`` on a CUDA
-    tensor, with no fallback: a CUDA tensor the kernel does not take
-    raises, and so does a failed build or launch.
+    launch the hand-written kernels of ``csrc/tree_ltdl.cu`` (factor,
+    substitute) and ``csrc/tree_half.cu`` (half-solves; both share
+    ``csrc/tree_lanes.cuh``) on a CUDA tensor, with no fallback: a CUDA
+    tensor the kernel does not take raises, and so does a failed build or
+    launch.
 
 NaN policy (as the JAX package's): a pivot that is not > 0 gives NaN in D,
 in that env only, so an indefinite system surfaces through the env step's
@@ -56,6 +58,13 @@ GROUP = 16
 _LAST_ROUND = 1 << 16
 _FIRST_ROUND = 1 << 17
 _BATCH = 8  # terms the factor kernel loads at once (csrc BATCH)
+# csrc/tree_half.cu: envs a block (one warp wide), the most right-hand
+# sides a block (TREE_HALF_KB), the fewest warps a block and the shared
+# memory a block can use.
+HALF_ENVS = 32
+HALF_KB = 8
+HALF_MIN_WARPS = 4
+_SMEM_LIMIT = 232448
 
 _FNS = None
 _TABLES: dict = {}
@@ -196,6 +205,36 @@ def kernel_table(tt: TreeTables):
                             np.asarray(tt.anc, np.int32), down.ravel(), head,
                             slot.ravel(), begin, entries])
     return table.astype(np.int32), len(down), len(head)
+
+
+def half_plan(nv: int, E: int, K: int, N: int,
+              sms: int) -> Tuple[bool, int, int, int]:
+    """The half-solve kernels' launch on a card of ``sms`` SMs (132 on an
+    H100): csrc/tree_half.cu ``half_plan``, the same function, which reads
+    the SM count from the device. The C entries keep the signatures of
+    the tree kernels, so the plan cannot be passed in; this copy lets the
+    CPU tests check it at every shape the wrappers take, and the card
+    test holds the two equal. Returns (lanes, Kb, warps, bytes).
+    ``lanes``: the one-thread-per-(env, right-hand side) kernel would walk
+    with fewer warps, ceil(N / 32) K, than the card has SMs, so the
+    substitute's lane-group pass (16 lanes an env, csrc/tree_lanes.cuh)
+    takes the shape. Else the thread kernel: Kb right-hand sides a block,
+    one (env, right-hand side) a thread of its first Kb warps; at least
+    ``HALF_MIN_WARPS`` warps, the others only stage; the block's dynamic
+    shared memory: the table's off and anc (padded to 16 B), x (nv rows a
+    thread) and H staged for the block's 32 envs. Kb is at most
+    ``HALF_KB``, at most K, and as many as 227 KB hold (2 at the edge, nv
+    256 and E 1,024). Raises only for the shapes the kernels refuse."""
+    if not (1 <= nv <= MAX_NV and nv <= E <= MAX_PAIRS
+            and 1 <= K <= _MAX_RHS and N >= 1):
+        raise ValueError(f"the half-solve kernels take 1 <= nv <= {MAX_NV}, "
+                         f"nv <= E <= {MAX_PAIRS}, 1 <= K <= {_MAX_RHS} and "
+                         f"N >= 1, got nv {nv}, E {E}, K {K}, N {N}")
+    lanes = -(-N // HALF_ENVS) * K < sms
+    fixed = 4 * (HALF_ENVS * E + -(-(nv + 1 + E) // 4) * 4)
+    per_rhs = 4 * HALF_ENVS * nv
+    kb = max(1, min(HALF_KB, K, (_SMEM_LIMIT - fixed) // per_rhs))
+    return lanes, kb, max(kb, HALF_MIN_WARPS), fixed + kb * per_rhs
 
 
 def tree_tables(chains: Sequence[Sequence[int]]) -> TreeTables:
@@ -407,6 +446,26 @@ def ltdl_downsolve_plain(chains, H: torch.Tensor, z: torch.Tensor):
 # --------------------------------------------------------------------- #
 # Tensor form: the CUDA kernels.
 # --------------------------------------------------------------------- #
+def bind_half_solves(lib):
+    """Sets the ctypes signatures of a library's half-solve entries
+    (``tree_ltdl_upsolve_f32``, ``tree_ltdl_downsolve_f32``)."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for half in (lib.tree_ltdl_upsolve_f32, lib.tree_ltdl_downsolve_f32):
+        half.argtypes = [ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, i32,
+                         i32, ptr]
+        half.restype = ctypes.c_int
+
+
+def _half_lib():
+    from .build import load_library
+    lib = load_library("tree_half", ["tree_half.cu"])
+    bind_half_solves(lib)
+    i32p = ctypes.POINTER(ctypes.c_int)
+    lib.tree_half_plan.argtypes = [ctypes.c_int] * 4 + [i32p] * 4
+    lib.tree_half_plan.restype = None
+    return lib
+
+
 def _kernel_fns():
     global _FNS
     if _FNS is None:
@@ -418,16 +477,26 @@ def _kernel_fns():
         lib.tree_ltdl_substitute_f32.argtypes = [ptr, i32, i32, i32, i32,
                                                  i32, ptr, ptr, ptr, ptr,
                                                  i32, i32, ptr]
-        for half in (lib.tree_ltdl_upsolve_f32, lib.tree_ltdl_downsolve_f32):
-            half.argtypes = [ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, i32,
-                             i32, ptr]
+        for fn in (lib.tree_ltdl_factor_f32, lib.tree_ltdl_substitute_f32):
+            fn.restype = ctypes.c_int
+        half = _half_lib()
         _FNS = {"factor": lib.tree_ltdl_factor_f32,
                 "substitute": lib.tree_ltdl_substitute_f32,
-                "upsolve": lib.tree_ltdl_upsolve_f32,
-                "downsolve": lib.tree_ltdl_downsolve_f32}
-        for fn in _FNS.values():
-            fn.restype = ctypes.c_int
+                "upsolve": half.tree_ltdl_upsolve_f32,
+                "downsolve": half.tree_ltdl_downsolve_f32,
+                "half_plan": half.tree_half_plan}
     return _FNS
+
+
+def half_plan_cuda(nv: int, E: int, K: int,
+                   N: int) -> Tuple[bool, int, int, int]:
+    """The launch csrc/tree_half.cu plans for a shape on the current card
+    (its ``tree_half_plan``): (lanes, Kb, warps, bytes), as
+    ``half_plan``."""
+    out = [ctypes.c_int() for _ in range(4)]
+    _kernel_fns()["half_plan"](nv, E, K, N, *map(ctypes.byref, out))
+    lanes, *rest = (v.value for v in out)
+    return (bool(lanes), *rest)
 
 
 def _kernel_tables(name, chains) -> TreeTables:
@@ -512,13 +581,13 @@ def _half_solve_cuda(entry, chains, H: torch.Tensor, b: torch.Tensor):
 
 
 def ltdl_upsolve_cuda(chains, H: torch.Tensor, b: torch.Tensor):
-    """Launches the substitute kernel's up pass alone: H (E, N), b (nv, N)
-    or (K, nv, N) -> z = L^-T b shaped as b."""
+    """Launches the upsolve kernel (csrc/tree_half.cu): H (E, N), b
+    (nv, N) or (K, nv, N) -> z = L^-T b shaped as b."""
     return _half_solve_cuda("upsolve", chains, H, b)
 
 
 def ltdl_downsolve_cuda(chains, H: torch.Tensor, z: torch.Tensor):
-    """Launches the substitute kernel's down pass alone: H (E, N), z
+    """Launches the downsolve kernel (csrc/tree_half.cu): H (E, N), z
     (nv, N) or (K, nv, N) -> x = L^-1 z shaped as z."""
     return _half_solve_cuda("downsolve", chains, H, z)
 

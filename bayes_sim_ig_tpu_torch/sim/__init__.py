@@ -3,9 +3,10 @@
 import torch
 
 from .task import (
-    Task, EnvState, VecEnv, env_step, env_full_reset, task_device,
+    Task, EnvState, VecEnv, env_step, env_full_reset,
     CLIP_OBSERVATIONS, CLIP_ACTIONS,
 )
+from ..utils.device import resolve_device
 from .ant import Ant
 from .anymal import Anymal
 from .ball_balance import BallBalance
@@ -54,7 +55,7 @@ def make_env(task_name: str, cfg: dict, seed: int = 0,
         raise NotImplementedError(
             f"Task '{task_name}' is not yet ported to "
             f"bayes_sim_ig_tpu_torch. Available: {available_tasks()}")
-    task = _TASK_REGISTRY[task_name](cfg, device=task_device(device))
+    task = _TASK_REGISTRY[task_name](cfg, device=resolve_device(device))
     task.asymmetric_observations = bool(
         cfg.get("env", {}).get("asymmetric_observations", False))
     if task.asymmetric_observations:
@@ -67,7 +68,7 @@ def make_env(task_name: str, cfg: dict, seed: int = 0,
 
 
 __all__ = ["Task", "EnvState", "VecEnv", "env_step", "env_full_reset",
-           "task_device", "Ant", "Anymal", "BallBalance", "Cartpole",
+           "resolve_device", "Ant", "Anymal", "BallBalance", "Cartpole",
            "FrankaCabinet", "Humanoid", "Ingenuity", "Pendulum",
            "Quadcopter", "ShadowHand", "make_env", "register_task",
            "available_tasks",

@@ -37,7 +37,8 @@ from ..physics import (
 )
 from ..physics.spatial import quat_to_rot
 from .render2d import draw_line
-from .task import Task, task_device
+from ..utils.device import resolve_device
+from .task import Task
 
 LEG_DIRS = np.array([[1, 1], [-1, 1], [-1, -1], [1, -1]],
                     np.float64) / np.sqrt(2.0)
@@ -102,7 +103,7 @@ class Ant(Task):
     substeps = 2
 
     def __init__(self, cfg, device="cuda"):
-        self.device = task_device(device)
+        self.device = resolve_device(device)
         env_cfg = cfg["env"]
         self.num_envs = int(env_cfg["numEnvs"])
         self.max_episode_length = int(env_cfg.get("episodeLength", 1000))

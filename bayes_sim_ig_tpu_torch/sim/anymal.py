@@ -37,7 +37,8 @@ from ..physics import (
 )
 from ..physics.spatial import quat_to_rot
 from .render2d import draw_line
-from .task import Task, task_device
+from ..utils.device import resolve_device
+from .task import Task
 
 LEGS = [("LF", 1, 1), ("LH", -1, 1), ("RF", 1, -1), ("RH", -1, -1)]
 BASE_Z = 0.62
@@ -105,7 +106,7 @@ class Anymal(Task):
     dof_vel_scale = 0.05
 
     def __init__(self, cfg, device="cuda"):
-        self.device = task_device(device)
+        self.device = resolve_device(device)
         env_cfg = cfg["env"]
         self.num_envs = int(env_cfg["numEnvs"])
         eplen_s = float(env_cfg.get("episodeLength_s", 50))

@@ -39,7 +39,8 @@ from ..physics import (
     ground_contact_forces, sphere_plane_pair_forces,
 )
 from ..physics.spatial import quat_to_rot
-from .task import Task, task_device
+from ..utils.device import resolve_device
+from .task import Task
 
 TRAY_R = 0.5          # tray half-extent
 TRAY_H = 0.7          # nominal tray height
@@ -92,7 +93,7 @@ class BallBalance(Task):
     substeps = 2
 
     def __init__(self, cfg, device="cuda"):
-        self.device = task_device(device)
+        self.device = resolve_device(device)
         env_cfg = cfg["env"]
         self.num_envs = int(env_cfg["numEnvs"])
         self.max_episode_length = int(env_cfg.get("episodeLength", 500))

@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from ..dr import TaskNames, build_params_spec
-from .task import Task, task_device
+from ..utils.device import resolve_device
+from .task import Task
 
 BODY_NAMES = ["slider", "cart", "pole"]
 DOF_NAMES = ["slider_to_cart", "cart_to_pole"]
@@ -49,7 +50,7 @@ class Cartpole(Task):
     substeps = 2
 
     def __init__(self, cfg, device="cuda"):
-        self.device = task_device(device)
+        self.device = resolve_device(device)
         env_cfg = cfg["env"]
         self.num_envs = int(env_cfg["numEnvs"])
         self.max_episode_length = int(env_cfg.get("episodeLength", 500))

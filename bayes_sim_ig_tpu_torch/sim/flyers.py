@@ -35,7 +35,8 @@ from ..physics import (
 )
 from ..physics.spatial import quat_to_rot
 from .render2d import draw_line
-from .task import Task, task_device
+from ..utils.device import resolve_device
+from .task import Task
 
 
 class FlyerState(NamedTuple):
@@ -54,7 +55,7 @@ class _FlyerBase(Task):
 
     def _setup(self, cfg, device, links, actor, dof_names):
         """The model, DR spec and device tables shared by both flyers."""
-        self.device = task_device(device)
+        self.device = resolve_device(device)
         self.model = m = ArticulatedModel(links, fixed_base=False)
         self.params_spec = build_params_spec(
             cfg["task"]["randomization_params"],

@@ -36,7 +36,8 @@ from ..physics import (
     forward_kinematics, forward_dynamics, integrate,
     carried_mass_factor, clamp_limits, sphere_plane_pair_forces,
 )
-from .task import Task, task_device
+from ..utils.device import resolve_device
+from .task import Task
 
 FRANKA_BODIES = [f"panda_link{i}" for i in range(8)] + \
     ["panda_leftfinger", "panda_rightfinger"]
@@ -109,7 +110,7 @@ class FrankaCabinet(Task):
     substeps = 2
 
     def __init__(self, cfg, device="cuda"):
-        self.device = task_device(device)
+        self.device = resolve_device(device)
         env_cfg = cfg["env"]
         self.num_envs = int(env_cfg["numEnvs"])
         self.max_episode_length = int(env_cfg.get("episodeLength", 500))

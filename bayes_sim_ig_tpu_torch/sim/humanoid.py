@@ -43,7 +43,8 @@ from ..physics import (
 )
 from ..physics.spatial import quat_to_rot
 from .render2d import draw_line
-from .task import Task, task_device
+from ..utils.device import resolve_device
+from .task import Task
 
 START_Z = 1.34
 # Phantom connector links: collapsed out of the link-axis tensors at model
@@ -175,7 +176,7 @@ class Humanoid(Task):
     substeps = 2
 
     def __init__(self, cfg, device="cuda"):
-        self.device = task_device(device)
+        self.device = resolve_device(device)
         env_cfg = cfg["env"]
         self.num_envs = int(env_cfg["numEnvs"])
         self.max_episode_length = int(env_cfg.get("episodeLength", 1000))

@@ -25,7 +25,8 @@ import numpy as np
 import torch
 
 from ..dr import TaskNames, build_params_spec
-from .task import Task, task_device
+from ..utils.device import resolve_device
+from .task import Task
 
 
 class PendulumState(NamedTuple):
@@ -51,7 +52,7 @@ class Pendulum(Task):
     gravity = 10.0
 
     def __init__(self, cfg, device="cuda"):
-        self.device = task_device(device)
+        self.device = resolve_device(device)
         env_cfg = cfg["env"]
         self.num_envs = int(env_cfg["numEnvs"])
         self.max_episode_length = int(env_cfg["episodeLength"])

@@ -67,7 +67,8 @@ from ..physics.contact import (contact_pairs_impulse_apply,
 from ..physics.dynamics import _cross, _mv
 from ..physics.spatial import quat_mul, rot_to_quat
 from .render2d import draw_line
-from .task import Task, task_device
+from ..utils.device import resolve_device
+from .task import Task
 
 HAND_BODIES = (
     ["robot0:hand mount", "robot0:forearm", "robot0:wrist", "robot0:palm"]
@@ -289,7 +290,7 @@ class ShadowHand(Task):
     FORCE_TORQUE_OBS_SCALE = 0.05
 
     def __init__(self, cfg, device="cuda"):
-        self.device = dev = task_device(device)
+        self.device = dev = resolve_device(device)
         env_cfg = cfg["env"]
         self.num_envs = int(env_cfg["numEnvs"])
         self.max_episode_length = int(env_cfg.get("episodeLength", 600))

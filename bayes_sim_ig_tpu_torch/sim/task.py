@@ -28,18 +28,6 @@ CLIP_OBSERVATIONS = 100.0
 CLIP_ACTIONS = 1.0
 
 
-def task_device(device) -> torch.device:
-    """The torch device of a task's tensors. Tasks and ``make_env`` default
-    to the card; without one that default raises instead of running on the
-    CPU, which a caller asks for with ``device="cpu"``."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} asked for, but "
-                           f"torch.cuda.is_available() is False: pass "
-                           f"device='cpu' to run on the CPU")
-    return device
-
-
 class Task:
     """Base class for vectorized tasks. Subclasses define the static spec
     attributes and the four batched functions below; ``device`` is the

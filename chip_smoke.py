@@ -30,7 +30,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
        the clean run, factor, substitute and fused solve);
      - the tree L^T D L factor and substitute (csrc/tree_ltdl.cu) on
        Humanoid's dof tree at N = 4096, 1 and 17, BallBalance's two-root
-       forest at 128 and 129, Ant's (nearly dense) tree at 1024 and 1025,
+       forest at 128 and 129, ShadowHand's tree at 1024, Ant's (nearly
+       dense) tree at 1024 and 1025,
        Anymal's at 4000, a random 30-dof tree (numpy, seed 0) at 1024 and
        1027 and a 40-deep chain (chains longer than the 16 lanes of an
        env) at 1027: the factor against the right-looking plain factor,
@@ -38,22 +39,26 @@ Phases (each prints its lines; any failure raises and exits non-zero):
        plain dense Cholesky solve of the same M; the NaN-pivot policy on
        Humanoid's tree and BallBalance's forest (one indefinite env: NaN
        in its env only, every other env bit for bit the clean run); at
-       (Humanoid, 4096) and (BallBalance, 128) the times of both kernels
+       (Humanoid, 4096), (BallBalance, 128) and (ShadowHand, 1024) the
+       times of both kernels
        against the path's plain version and the dense yardstick of the
        pair (cholesky_ex + cholesky_solve on the same systems made dense,
        env-first); and at Humanoid's, BallBalance's, Anymal's and Ant's
        trees the tree-vs-dense A/B: the two tree kernels against the two
        SPD kernels on the same M made dense;
-     - the tree kernel's half-solves, L^-T (upsolve) and L^-1
-       (downsolve), the passes of the impulse contact pass, on
-       ShadowHand's dof tree at 1024 envs (K = 51, the 51 impulse rows,
-       and K = 1) and at 10000 envs (shadow_hand_more.yaml's width), a
-       random 30-dof tree and odd env counts, against their plain
-       versions, with the NaN policy (an env whose H is NaN comes out
-       non-finite, every other env bit for bit its clean run); at the
-       ShadowHand shapes their times against the plain versions, the
-       bound and the one-call yardstick solve_triangular(unitriangular)
-       on L made dense;
+     - the tree half-solves, L^-T (upsolve) and L^-1 (downsolve), the
+       passes of the impulse contact pass (csrc/tree_half.cu: one thread
+       per env and right-hand side, or the substitute's 16-lane pass below
+       one walking warp an SM), on ShadowHand's dof tree at 1024
+       envs (K = 51, the 51 impulse rows, and K = 1) and at 10000 envs
+       (shadow_hand_more.yaml's width), a random 30-dof tree, odd env
+       counts and a 256-dof tree of 1,024 pairs (the wrappers' edge, 2
+       right-hand sides a block), against their plain versions, with the
+       NaN policy (an env whose H is NaN comes out non-finite, every
+       other env bit for bit its clean run); at the ShadowHand shapes
+       their times against the plain versions, the bound and the
+       one-call yardstick solve_triangular(unitriangular) on L made
+       dense;
   4. the ADR loop on Ant at full width (1024 envs, 17 params,
      trainTrajLen 50, summary_corrdiff, MDNN [128, 128] x 10 components,
      PPO [256, 128, 64] with nsteps 16) for 2 ADR iterations through
@@ -158,17 +163,19 @@ SPD_RHS = 4  # K for the multi-right-hand-side substitute
 TREE_RTOL, TREE_ATOL = 1e-4, 1e-5
 # (tree, N): Humanoid's at its full width, one env and a ragged count,
 # BallBalance's two-root forest (tray tree + free ball) at its width and
-# one env past it, Ant's nearly dense tree at its width, a random 30-dof
-# tree, then env counts that leave a partial block (16 envs a block) and a
-# chain 40 deep (longer than an env's 16 lanes).
+# one env past it, ShadowHand's and Ant's nearly dense tree at their
+# widths, a random 30-dof tree, then env counts that leave a partial
+# block (16 envs a block) and a chain 40 deep (longer than an env's 16
+# lanes).
 TREE_SHAPES = [("humanoid", 4096), ("humanoid", 1), ("humanoid", 17),
                ("ball_balance", 128), ("ball_balance", 129),
-               ("ant", 1024), ("random30", 1024), ("ant", 1025),
-               ("random30", 1027), ("chain40", 1027)]
+               ("shadow_hand", 1024), ("ant", 1024), ("random30", 1024),
+               ("ant", 1025), ("random30", 1027), ("chain40", 1027)]
 # The trees the ADR paths factor, timed: Humanoid's (the kernels line's
-# own times) and BallBalance's.
+# own times), BallBalance's and ShadowHand's.
 TREE_PATHS = {("humanoid", 4096): "Humanoid",
-              ("ball_balance", 128): "BallBalance"}
+              ("ball_balance", 128): "BallBalance",
+              ("shadow_hand", 1024): "ShadowHand"}
 TREE_MAIN = ("humanoid", 4096)
 # The NaN-pivot policy on Humanoid's tree and on BallBalance's forest.
 TREE_NAN = [("humanoid", 4096), ("ball_balance", 128), ("ball_balance", 129)]
@@ -182,11 +189,13 @@ TREE_RHS = 4
 # tree at its 1024 envs with K = 51 (the 35 normal and 16 friction rows,
 # up-solved once a control step) and K = 1 (the down-solve of every
 # substep), the same at shadow_hand_more.yaml's 10000 envs; then a random
-# 30-dof tree and env counts that leave a partial block.
+# 30-dof tree, env counts that leave a partial block (32 envs a block),
+# and the wrappers' edge: a 256-dof tree of 1,024 pairs at 333 envs, K 13
+# (2 right-hand sides a block: the last block holds one).
 HALF_SHAPES = [("shadow_hand", 1024, 51), ("shadow_hand", 1024, 1),
                ("shadow_hand", 10000, 51), ("shadow_hand", 10000, 1),
                ("random30", 1027, 4), ("shadow_hand", 1025, 3),
-               ("shadow_hand", 17, 51)]
+               ("shadow_hand", 17, 51), ("edge256", 333, 13)]
 # The shapes each entry point is timed at (the kernels line's own times
 # are the first): the upsolve at K = 51, the downsolve at K = 1.
 HALF_TIMED = {"upsolve": [("shadow_hand", 1024, 51),
@@ -220,7 +229,8 @@ def phase_build():
     )
     loaders = {"rff_features": rff_kernel._kernel_fn,
                "spd_lanes": spd_kernel._kernel_fns,
-               "tree_ltdl": tree_solve._kernel_fns}
+               "tree_ltdl": tree_solve._kernel_fns,
+               "tree_half": tree_solve._half_lib}
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
         futures = {name: pool.submit(fn) for name, fn in loaders.items()}
@@ -588,6 +598,23 @@ def _random_chains(nv, seed):
     return chains
 
 
+def _edge_chains(nv=256, pairs=1024, seed=0):
+    """A random tree at the tree kernels' edge: nv dofs and at most
+    ``pairs`` ancestor pairs (1,024, chains up to 9 deep at seed 0). Each
+    dof hangs from a random earlier dof while the pairs allow, else starts
+    a new root."""
+    rs = np.random.RandomState(seed)
+    chains, left = [[]], pairs - nv
+    for k in range(1, nv):
+        p = int(rs.randint(k))
+        if len(chains[p]) < left:
+            chains.append([p] + chains[p])
+            left -= len(chains[-1])
+        else:
+            chains.append([])
+    return chains
+
+
 def _tree_chains(tree):
     from bayes_sim_ig_tpu_torch.sim.ant import build_ant_model
     from bayes_sim_ig_tpu_torch.sim.anymal import build_anymal_model
@@ -601,6 +628,8 @@ def _tree_chains(tree):
         return models[tree]().dof_anc_chains
     if tree == "chain40":
         return [list(range(k - 1, -1, -1)) for k in range(40)]
+    if tree == "edge256":
+        return _edge_chains()
     return _random_chains(30, 0)
 
 
@@ -860,8 +889,10 @@ def phase_half_solves():
     timed = collections.defaultdict(dict)
     for tree, N, K in HALF_SHAPES:
         chains = _tree_chains(tree)
-        shape = f"({tree}: nv {len(chains)}, E {ts.tree_tables(chains).E}, " \
-                f"N {N}, K {K})"
+        E = ts.tree_tables(chains).E
+        lanes, kb, _, _ = ts.half_plan_cuda(len(chains), E, K, N)
+        shape = (f"({tree}: nv {len(chains)}, E {E}, N {N}, K {K}; "
+                 f"{'16 lanes an env' if lanes else f'Kb {kb}'})")
         Mp, _, _, _ = _tree_inputs(chains, N)
         H, _ = ts.ltdl_factor_cuda(chains, Mp)
         b = torch.randn(K, len(chains), N, device=H.device,
@@ -877,8 +908,9 @@ def phase_half_solves():
             if (tree, N, K) in HALF_TIMED[entry]:
                 timed[entry][(tree, N, K)] = _half_times(
                     ts, bounds, entry, chains, H, b, shape)
-    for tree, N in (("shadow_hand", 1024), ("random30", 1027)):
-        _half_nan_policy(ts, tree, N, 3)
+    for tree, N, K in (("shadow_hand", 1024, 1), ("shadow_hand", 1024, 5),
+                       ("random30", 1027, 3), ("random30", 1027, 5)):
+        _half_nan_policy(ts, tree, N, K)
     out = {}
     for entry, shapes in HALF_TIMED.items():
         t = timed[entry]
@@ -1262,13 +1294,14 @@ def main():
             replaces, by_task(f"tree_ltdl_{entry}"), t,
             dense_pair_ms=t["dense_pair"]["ms"],
             dense_pair_dev_ms=t["dense_pair"]["dev_ms"], times=t["times"]))
-    # The half-solves: the substitute kernel's up and down passes alone.
+    # The half-solves: one thread per env and right-hand side, or the
+    # substitute's lane pass below one walking warp an SM.
     for entry, replaces in (
             ("upsolve", "bayes_sim_ig_tpu/ops/tree_solve.py:146"),
             ("downsolve", "bayes_sim_ig_tpu/ops/tree_solve.py:163")):
         t = half[entry]
         kernels.append(_kernel_entry(
-            f"tree_ltdl_{entry}", "bayes_sim_ig_tpu_torch/csrc/tree_ltdl.cu",
+            f"tree_ltdl_{entry}", "bayes_sim_ig_tpu_torch/csrc/tree_half.cu",
             replaces, by_task(f"tree_ltdl_{entry}"), t,
             library_call="torch.linalg.solve_triangular(unitriangular)",
             times=t["times"]))

@@ -8,6 +8,8 @@ CUDA card, in one process.
 
     python3 kernel_ab.py --tree-same runs/ab/old
 
+    python3 kernel_ab.py --half-same runs/ab/old
+
 The second form takes an older ``tree_ltdl.cu`` with the current C
 interface of the factor and the substitute (the host-built table of
 ``ops/tree_solve.py::kernel_table``): it holds both kernels to the old
@@ -15,6 +17,18 @@ ones bit for bit (factor H and D; the substitute at K = 1 and K = 4) at
 Humanoid's tree (4096 envs) and BallBalance's forest (128 envs), times
 them in turns (old, new, new, old) and writes
 chiprun_out/kernel_ab_tree_same.json.
+
+The third form takes a ``tree_ltdl.cu`` whose half-solve entries have the
+current C interface (``tree_ltdl_upsolve_f32``, ``tree_ltdl_downsolve_f32``:
+``722aa60``'s, where they were the substitute kernel's passes). It holds
+csrc/tree_half.cu's half-solves to the old ones bit for bit at
+``HALF_SAME`` and the current substitute to the old one at K = 1 and 4
+(``SUB_SAME``); then, at ShadowHand's shapes, times the old kernels, the
+new entries (Kb 8) and, where K > 1, the Kb sweep of csrc/tree_half.cu
+in turns (old, new, each variant, then in reverse): Kb 4 and 16
+right-hand sides a block (``HALF_VARIANTS``, built with -D flags beside
+the package's build).
+Writes chiprun_out/kernel_ab_half_same.json.
 
 The old sources must expose the one-thread-per-env C interface (the SPD
 entries as today; the tree entries take the table [parent (nv), off
@@ -49,16 +63,31 @@ from bayes_sim_ig_tpu_torch.ops import tree_solve as ts
 
 OUT = os.path.join(cs.HERE, "chiprun_out", "kernel_ab.json")
 OUT_SAME = os.path.join(cs.HERE, "chiprun_out", "kernel_ab_tree_same.json")
+OUT_HALF = os.path.join(cs.HERE, "chiprun_out", "kernel_ab_half_same.json")
 # (tree, N) of the same-interface tree A/B: the paths' trees.
 TREE_SAME = [("humanoid", 4096), ("ball_balance", 128)]
 SPD_AB = [(14, 1024), (18, 4000)]
+# (tree, N, K) of the half-solve A/B: chip_smoke.py's shapes but the edge
+# (the old kernels' shared memory does not hold a 256-dof tree of 1,024
+# pairs), and K = 1 at 2048, 4096 and 8192 envs, around the route's
+# switch at 4,224 (132 warps); all but two are timed.
+HALF_SAME = [("shadow_hand", 1024, 51), ("shadow_hand", 1024, 1),
+             ("shadow_hand", 10000, 51), ("shadow_hand", 10000, 1),
+             ("shadow_hand", 2048, 1), ("shadow_hand", 4096, 1),
+             ("shadow_hand", 8192, 1), ("random30", 1027, 4),
+             ("shadow_hand", 17, 51)]
+HALF_TIMED = HALF_SAME[:7]
+SUB_SAME = [("shadow_hand", 1024), ("humanoid", 4096)]
+# csrc/tree_half.cu's Kb sweep beside the build's default of 8: -D flags
+# of its build.
+HALF_VARIANTS = {f"kb{kb}": [f"-DTREE_HALF_KB={kb}"] for kb in (4, 16)}
 
 
-def _build_old(old_dir, name):
-    src = os.path.join(old_dir, f"{name}.cu")
-    lib = os.path.join(old_dir, f"{name}_old.so")
-    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", lib, src],
-                   check=True, capture_output=True, text=True)
+def _build_old(old_dir, name, src=None, tag="old", flags=()):
+    src = src or os.path.join(old_dir, f"{name}.cu")
+    lib = os.path.join(old_dir, f"{name}_{tag}.so")
+    subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, *flags, "-o", lib,
+                    src], check=True, capture_output=True, text=True)
     return ctypes.CDLL(lib)
 
 
@@ -287,9 +316,7 @@ def tree_same(old_dir):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     old.tree_ltdl_factor_f32.argtypes = [ptr, i32, i32, i32, i32, i32, ptr,
                                          ptr, ptr, i32, ptr]
-    old.tree_ltdl_substitute_f32.argtypes = [ptr, i32, i32, i32, i32, i32,
-                                             ptr, ptr, ptr, ptr, i32, i32,
-                                             ptr]
+    _bind_old_substitute(old)
     out = {}
     for tree, N in TREE_SAME:
         chains = cs._tree_chains(tree)
@@ -332,7 +359,134 @@ def tree_same(old_dir):
     return out
 
 
+def _bind_old_substitute(old):
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    old.tree_ltdl_substitute_f32.argtypes = [ptr, i32, i32, i32, i32, i32,
+                                             ptr, ptr, ptr, ptr, i32, i32,
+                                             ptr]
+
+
+def _half_libs(old_dir):
+    """The old tree_ltdl.cu and csrc/tree_half.cu's variants, built in
+    parallel, their half-solve entries bound."""
+    src = os.path.join(build.CSRC_DIR, "tree_half.cu")
+    with concurrent.futures.ThreadPoolExecutor(len(HALF_VARIANTS) + 2) as pool:
+        old = pool.submit(_build_old, old_dir, "tree_ltdl")
+        variants = {name: pool.submit(_build_old, old_dir, "tree_half", src,
+                                      name, flags)
+                    for name, flags in HALF_VARIANTS.items()}
+        pool.submit(ts._kernel_fns).result()
+        old = old.result()
+        variants = {name: f.result() for name, f in variants.items()}
+    for lib in (old, *variants.values()):
+        ts.bind_half_solves(lib)
+    _bind_old_substitute(old)
+    return old, variants
+
+
+def _half_input(tree, N, K):
+    """chip_smoke.py's half-solve inputs: H from the factor kernel, b
+    (K, nv, N), or (nv, N) at K = 1."""
+    chains = cs._tree_chains(tree)
+    Mp = cs._tree_inputs(chains, N)[0]
+    H, _ = ts.ltdl_factor_cuda(chains, Mp)
+    b = torch.randn(K, len(chains), N, device=H.device,
+                    generator=torch.Generator(device=H.device).manual_seed(K))
+    return chains, H, b[0] if K == 1 else b
+
+
+def half_same(old_dir):
+    """csrc/tree_half.cu against the old half-solves and the current
+    substitute against the old one: bit for bit, then timed in turns."""
+    old, variants = _half_libs(old_dir)
+    dev = torch.device("cuda:0")
+    out = {"bit_for_bit": {}, "times": {}, "plans": {}}
+    for tree, N, K in HALF_SAME:
+        chains, H, b = _half_input(tree, N, K)
+        tt = ts.tree_tables(chains)
+        args = ts._table_args(tt, dev)
+        shape = f"({tree}: nv {tt.nv}, E {tt.E}, N {N}, K {K})"
+
+        def run(fn, entry):
+            x = torch.empty_like(b)
+            _call(fn, *args, H.data_ptr(), b.data_ptr(), x.data_ptr(), K, N)
+            return x
+        same, timed = {}, {}
+        for entry in ("upsolve", "downsolve"):
+            name = f"tree_ltdl_{entry}_f32"
+            want = run(getattr(old, name), entry)
+            new = getattr(ts, f"ltdl_{entry}_cuda")
+            same[entry] = torch.equal(new(chains, H, b), want)
+            for v, lib in variants.items():
+                same[f"{entry} {v}"] = torch.equal(
+                    run(getattr(lib, name), entry), want)
+            if (tree, N, K) in HALF_TIMED:
+                # At K = 1 every Kb is 1: the variants are the new entry.
+                sweep = variants if K > 1 else {}
+                fns = {"old": lambda f=getattr(old, name): run(f, entry),
+                       "new": lambda: new(chains, H, b),
+                       **{v: (lambda f=getattr(lib, name): run(f, entry))
+                          for v, lib in sweep.items()}}
+                order = ["old", "new", *sweep]
+                runs = {who: [] for who in order}
+                for who in order + order[::-1]:
+                    runs[who].append(_measure(fns[who]))
+                timed[entry] = runs
+                dev_ms = {who: [r["dev_ms"] for r in rs]
+                          for who, rs in runs.items()}
+                print(f"[ab] tree_ltdl_{entry} {shape} device ms per call "
+                      f"(turns old, new, variants, reversed): {dev_ms}",
+                      flush=True)
+        torch.cuda.synchronize()
+        print(f"[ab] half-solves {shape} vs the old kernels, bit for bit: "
+              f"{same}", flush=True)
+        out["bit_for_bit"][shape] = same
+        out["plans"][shape] = ts.half_plan_cuda(tt.nv, tt.E, K, N)
+        if timed:
+            out["times"][shape] = timed
+        if not all(same.values()):
+            raise AssertionError(f"the half-solves changed results at "
+                                 f"{shape}: {same}")
+    for tree, N in SUB_SAME:
+        chains = cs._tree_chains(tree)
+        tt = ts.tree_tables(chains)
+        args = ts._table_args(tt, dev)
+        Mp, _, b, bk = cs._tree_inputs(chains, N)
+        H, D = ts.ltdl_factor_cuda(chains, Mp)
+
+        def old_sub(rhs):
+            x = torch.empty_like(rhs)
+            k = rhs.shape[0] if rhs.ndim == 3 else 1
+            _call(old.tree_ltdl_substitute_f32, *args, H.data_ptr(),
+                  D.data_ptr(), rhs.data_ptr(), x.data_ptr(), k, N)
+            return x
+        same = {f"substitute K={1 if rhs.ndim == 2 else rhs.shape[0]}":
+                torch.equal(old_sub(rhs), ts.ltdl_substitute_cuda(
+                    chains, (H, D), rhs)) for rhs in (b, bk)}
+        shape = f"({tree}: nv {tt.nv}, E {tt.E}, N {N})"
+        print(f"[ab] substitute {shape} vs the old kernel, bit for bit: "
+              f"{same}", flush=True)
+        out["bit_for_bit"][shape] = same
+        if not all(same.values()):
+            raise AssertionError(f"the substitute changed results at "
+                                 f"{shape}: {same}")
+        res = _ab(f"tree_ltdl_substitute K=1 {shape}", lambda: old_sub(b),
+                  lambda: ts.ltdl_substitute_cuda(chains, (H, D), b),
+                  lambda: ts.ltdl_substitute_plain(chains, (H, D), b), None,
+                  bounds.tree_substitute(chains, N), lambda: None)
+        out["times"][f"substitute {shape}"] = res
+    return out
+
+
 def main(argv):
+    if len(argv) == 2 and argv[0] == "--half-same":
+        smi = cs.phase_device()
+        out = {"card": smi, "half_same": half_same(argv[1])}
+        os.makedirs(os.path.dirname(OUT_HALF), exist_ok=True)
+        with open(OUT_HALF, "w") as f:
+            json.dump(out, f, indent=1)
+        print(f"[ab] wrote {OUT_HALF}; card {smi}")
+        return
     if len(argv) == 2 and argv[0] == "--tree-same":
         smi = cs.phase_device()
         out = {"card": smi, "tree_same": tree_same(argv[1])}

@@ -33,7 +33,8 @@ def _run_bsim(model_class, summarizer, seed, n_iters=10, n_traj=None):
     bsim = BayesSim(model_cfg=_model_cfg(model_class, summarizer),
                     obs_dim=3, act_dim=1, params_dim=2,
                     params_lows=np.array([0.01, 0.01]),
-                    params_highs=np.array([2.0, 2.0]), seed=seed)
+                    params_highs=np.array([2.0, 2.0]), seed=seed,
+                    device="cpu")
     for _ in range(n_iters):
         bsim.run_training(sim_params, states, actions)
     return bsim
@@ -81,7 +82,7 @@ def test_summary_dim_probe_and_mdrff_string_parsing():
     cfg = _model_cfg("MDRFF_Matern32_2.0", "summary_waypts")
     bsim = BayesSim(model_cfg=cfg, obs_dim=3, act_dim=1, params_dim=2,
                     params_lows=np.array([0.01, 0.01]),
-                    params_highs=np.array([2.0, 2.0]))
+                    params_highs=np.array([2.0, 2.0]), device="cpu")
     assert bsim.model.rff.coeff.shape == (40, 100)  # summary dim 40, m/2
     assert type(bsim.model).__name__ == "MDRFF"
 
@@ -90,7 +91,7 @@ def test_all_nonfinite_chunk_skips_fit():
     cfg = _model_cfg("MDNN", "summary_waypts")
     bsim = BayesSim(model_cfg=cfg, obs_dim=3, act_dim=1, params_dim=2,
                     params_lows=np.array([0.01, 0.01]),
-                    params_highs=np.array([2.0, 2.0]))
+                    params_highs=np.array([2.0, 2.0]), device="cpu")
     n, t = 8, cfg["trainTrajLen"] + 1
     states = np.full((n, t, 3), np.nan, np.float32)
     actions = np.zeros((n, t - 1, 1), np.float32)
@@ -106,6 +107,24 @@ def test_all_nonfinite_chunk_skips_fit():
                              states, rs.randn(64, t - 1, 1).astype(np.float32))
     assert np.isfinite(log2["train_loss"][-1])
     assert len(log2["train_loss"]) == len(log2["test_loss"])
+
+
+def test_bayes_sim_defaults_to_the_card(monkeypatch):
+    """BayesSim defaults to the card; without one (torch.cuda.is_available()
+    False, as on this CPU-only torch or forced so on a card's machine) the
+    default raises instead of running on the CPU, and device="cpu" is what
+    a caller asks the CPU with."""
+    import inspect
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kw = dict(model_cfg=_model_cfg("MDNN", "summary_start"), obs_dim=3,
+              act_dim=1, params_dim=2, params_lows=np.array([0.01, 0.01]),
+              params_highs=np.array([2.0, 2.0]))
+    assert inspect.signature(BayesSim).parameters["device"].default == "cuda"
+    with pytest.raises(RuntimeError, match="is_available"):
+        BayesSim(**kw)
+    bsim = BayesSim(device="cpu", **kw)
+    assert bsim.device.type == "cpu"
+    assert all(p.device.type == "cpu" for p in bsim.model.net.parameters())
 
 
 def test_adr_loop_runs_and_resumes_on_cpu(tmp_path, monkeypatch):

@@ -32,10 +32,10 @@ def _pair(kind, full_covariance=False, input_dim=12, lr=1e-3):
               seed=3)
     if kind == "MDNN":
         jm = JaxMDNN(hidden_layers=(16, 8), **kw)
-        tm = MDNN(hidden_layers=(16, 8), **kw)
+        tm = MDNN(hidden_layers=(16, 8), device="cpu", **kw)
     else:
         jm = JaxMDRFF(n_feat=40, sigma=2.0, **kw)
-        tm = MDRFF(n_feat=40, sigma=2.0, **kw)
+        tm = MDRFF(n_feat=40, sigma=2.0, device="cpu", **kw)
         tm.rff.coeff.copy_(torch.from_numpy(np.asarray(jm.rff.coeff)))
     tm.net.load_state_dict(mdnn_params_from_jax(
         jax.tree_util.tree_map(np.asarray, jm.params)))
@@ -160,8 +160,34 @@ def test_convert_roundtrip_and_init_bounds():
         np.testing.assert_array_equal(g, np.asarray(w))
     fresh = MDNN(input_dim=12, output_dim=3, output_lows=LOWS,
                  output_highs=HIGHS, n_gaussians=4, full_covariance=False,
-                 hidden_layers=(16,), activation="tanh", lr=1e-3, seed=0)
+                 hidden_layers=(16,), activation="tanh", lr=1e-3, seed=0,
+                 device="cpu")
     for layer in [fresh.net.trunk[0], fresh.net.pi]:
         bound = 1.0 / np.sqrt(layer.in_features)
         assert float(layer.weight.detach().abs().max()) <= bound
         assert float(layer.bias.detach().abs().max()) <= bound
+
+
+@pytest.mark.parametrize("kind", ["MDNN", "MDRFF"])
+def test_models_default_to_the_card(kind, monkeypatch):
+    """MDNN and MDRFF default to the card; without one
+    (torch.cuda.is_available() False) the default raises instead of
+    running on the CPU, and device="cpu" is what a caller asks the CPU
+    with."""
+    import inspect
+    cls = {"MDNN": MDNN, "MDRFF": MDRFF}[kind]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kw = dict(input_dim=12, output_dim=3, output_lows=LOWS,
+              output_highs=HIGHS, n_gaussians=4, full_covariance=False,
+              activation="tanh", lr=1e-3, seed=0)
+    if kind == "MDNN":
+        kw["hidden_layers"] = (16,)
+    else:
+        kw["n_feat"] = 40
+    assert inspect.signature(cls).parameters["device"].default == "cuda"
+    with pytest.raises(RuntimeError, match="is_available"):
+        cls(**kw)
+    model = cls(device="cpu", **kw)
+    mog = model.predict_MoGs(np.zeros((1, 12), np.float32))[0]
+    assert mog.ndim == 3 and np.isfinite(mog.calc_mean_and_cov()[0]).all()
+    assert all(p.device.type == "cpu" for p in model.net.parameters())
