@@ -16,14 +16,22 @@ Port of ``bayes_sim_ig_tpu/bayes_sim_main.py``:
        ``bsim.predict(all_real_states, all_real_actions)``.
 
 Every env and model tensor lives on ``--rl_device`` (default cuda:0).
+Under ``torchrun`` with W ranks the envs are sharded over the ranks, rank r
+on ``cuda:LOCAL_RANK`` (``setup_parallelism``, ``parallel/mesh.py``). The
+run equals one process bit for bit on the CPU, and one card on cards but
+for the rounding of the policy's GEMMs at fewer rows; rank 0 logs, plots
+and writes the checkpoints.
 
 Run:
   python -m bayes_sim_ig_tpu_torch.bayes_sim_main --task Cartpole \
       --logdir runs/bsim --max_iterations 20 --seed 0 --rl_device cuda:0
+  torchrun --nproc_per_node 4 -m bayes_sim_ig_tpu_torch.bayes_sim_main \
+      --task Cartpole --logdir runs/bsim
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import sys
@@ -31,11 +39,15 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 np.set_printoptions(edgeitems=30, linewidth=4000, precision=4,
                     suppress=True, threshold=10000)
 
 from .engine import BayesSim  # noqa: E402
+from .parallel import (auto_mesh, initialize_distributed,  # noqa: E402
+                       is_main_process, local_device, set_global_mesh,
+                       sync_host_rng)
 from .distributions import pdf, to_device_distr  # noqa: E402
 from .rl import process_ppo  # noqa: E402
 from .sim import make_env  # noqa: E402
@@ -64,7 +76,10 @@ def _notice_once(msg):
 
 
 def _make_writer(logdir, sub="bsim"):
-    """tensorboardX's writer, else PyTorch's own, else a no-op."""
+    """tensorboardX's writer, else PyTorch's own, else a no-op (always on
+    ranks other than 0)."""
+    if not is_main_process():
+        return _NullWriter()
     try:
         from tensorboardX import SummaryWriter
     except ImportError:
@@ -78,6 +93,8 @@ def _make_writer(logdir, sub="bsim"):
 
 
 def _plot_posterior(writer, step, spec, real_params_distr, posterior):
+    if not is_main_process():
+        return
     try:
         import matplotlib  # noqa: F401
     except ImportError:
@@ -109,12 +126,57 @@ def _stop_profile(prof, logdir):
     print("Wrote torch.profiler trace to", out)
 
 
+def setup_parallelism(num_envs, device="cuda"):
+    """Multi-GPU bring-up for the ADR loop: joins the process group that
+    ``torchrun`` describes (NCCL for a CUDA ``device``, gloo for the CPU),
+    then installs a 1-D env mesh over all its ranks as the global mesh
+    (``parallel/mesh.py``; raises if they do not divide ``numEnvs``): each
+    rank then steps its slice of the envs and gathers what they produce.
+    Returns the mesh (None = a single device)."""
+    device = torch.device(device)
+    initialize_distributed(backend="nccl" if device.type == "cuda"
+                           else "gloo")
+    if device.type == "cuda" and dist.is_initialized():
+        torch.cuda.set_device(local_device(device))
+    mesh = auto_mesh(num_envs)
+    set_global_mesh(mesh)
+    sync_host_rng()
+    if mesh is not None:
+        print(f"Parallelism: sharding {num_envs} envs over {mesh.size} "
+              f"ranks (1-D env mesh), this is rank {mesh.rank} on "
+              f"{local_device(device)}")
+    else:
+        count = (torch.cuda.device_count() if device.type == "cuda"
+                 else 1)
+        print(f"Parallelism: single device ({count} visible)")
+    return mesh
+
+
 def main(argv=None):
     """Runs the ADR loop; returns a dict with the final ``bsim``, ``ppo``,
     ``env``, ``posterior``, the run's ``logdir`` and the seconds of each
-    ADR iteration (``iter_secs``)."""
+    ADR iteration (``iter_secs``). Ranks other than 0 print nothing."""
     args, cfg_env, cfg_train = init_args(argv)
-    device = torch.device(args.rl_device)
+    had_group = dist.is_available() and dist.is_initialized()
+    num_envs = int(cfg_env["env"]["numEnvs"])
+    mesh = setup_parallelism(num_envs, args.rl_device)
+    try:
+        if mesh is not None:
+            # This rank builds and steps its own slice of the envs.
+            cfg_env["env"]["numEnvs"] = num_envs // mesh.size
+        with contextlib.ExitStack() as stack:
+            if not is_main_process():
+                stack.enter_context(contextlib.redirect_stdout(
+                    stack.enter_context(open(os.devnull, "w"))))
+            return _adr_loop(args, cfg_env, cfg_train,
+                             local_device(args.rl_device))
+    finally:
+        set_global_mesh(None)
+        if not had_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _adr_loop(args, cfg_env, cfg_train, device):
     env = make_env(args.task, cfg_env, seed=args.seed, device=device)
     spec = env.task.params_spec
     print(spec.describe())
@@ -189,7 +251,8 @@ def main(argv=None):
             print(f"Resumed from iteration {start_iter - 1}; "
                   f"continuing at {start_iter}")
 
-    profile_iter = start_iter if getattr(args, "profile", False) else None
+    profile_iter = (start_iter if getattr(args, "profile", False)
+                    and is_main_process() else None)
     prof = None
     iter_secs_all = []
     for real_iter_id in range(start_iter, bs_cfg["realIters"]):
@@ -285,10 +348,11 @@ def main(argv=None):
         writer.add_scalar("perf/sec_per_adr_iter", iter_secs, real_iter_id)
         print(f"Iter {real_iter_id} took {iter_secs:.1f}s; "
               f"posterior:\n{sim_params_distr}")
-        _save_iteration_checkpoint(args.logdir, real_iter_id,
-                                   sim_params_distr, ppo,
-                                   all_real_states, all_real_actions,
-                                   bsim=bsim if bs_cfg["ftune"] else None)
+        if is_main_process():
+            _save_iteration_checkpoint(
+                args.logdir, real_iter_id, sim_params_distr, ppo,
+                all_real_states, all_real_actions,
+                bsim=bsim if bs_cfg["ftune"] else None)
     writer.close()
     rl_writer.close()
     return {"bsim": bsim, "ppo": ppo, "env": env,

@@ -14,6 +14,7 @@ from typing import NamedTuple, Union
 import numpy as np
 import torch
 
+from ..parallel.mesh import env_draw
 from . import pdf
 
 
@@ -68,16 +69,18 @@ def to_device_distr(distr, lows=None, highs=None,
 
 def sample_distr(distr: DeviceDistr, gen: torch.Generator,
                  n: int) -> torch.Tensor:
-    """Draws ``n`` param vectors from a device distribution, clipped to the
-    param box. ``gen`` lives on the distribution's device."""
+    """Draws ``n`` param vectors (one per env) from a device distribution,
+    clipped to the param box. ``gen`` lives on the distribution's device."""
     if isinstance(distr, DeviceUniform):
-        u = torch.rand((n, distr.lows.shape[0]), generator=gen,
-                       dtype=distr.lows.dtype, device=distr.lows.device)
+        u = env_draw(torch.rand, (n, distr.lows.shape[0]), gen,
+                     dtype=distr.lows.dtype, device=distr.lows.device)
         return distr.lows + u * (distr.highs - distr.lows)
-    comp = torch.multinomial(distr.weights, n, replacement=True,
-                             generator=gen)
-    z = torch.randn((n, distr.means.shape[1]), generator=gen,
-                    dtype=distr.means.dtype, device=distr.means.device)
+    comp = env_draw(
+        lambda shape, generator: torch.multinomial(
+            distr.weights, shape[0], replacement=True, generator=generator),
+        (n,), gen)
+    z = env_draw(torch.randn, (n, distr.means.shape[1]), gen,
+                 dtype=distr.means.dtype, device=distr.means.device)
     smpl = distr.means[comp] + torch.einsum("nij,nj->ni", distr.chols[comp],
                                             z)
     return torch.clamp(smpl, distr.lows, distr.highs)

@@ -10,9 +10,9 @@ dimensions. Sequences are deterministic across runs.
 
 All call sites in this framework are host-side, one-shot initializations
 (RFF frequency draws, quasi-random sampling of host distributions), so this
-is vectorized numpy. A native C generator (``ops/native``, not built for
-this package yet) is used when built, with this as the reference
-implementation and fallback.
+is vectorized numpy. The native C generator (``ops/native/halton.c``,
+built by ``python setup.py build_ext --inplace``) is used when built, with
+this as the reference implementation and fallback.
 """
 
 from __future__ import annotations
@@ -71,7 +71,7 @@ def _radical_inverse(indices: np.ndarray, base: int,
     return result
 
 
-try:  # Optional native (C) generator, not built for this package yet.
+try:  # Optional native (C) generator, ops/native/halton.c.
     from ..ops.native import _halton_native
 except ImportError:  # pragma: no cover - extension not built
     _halton_native = None

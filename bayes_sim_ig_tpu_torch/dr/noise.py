@@ -12,6 +12,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..parallel.mesh import env_draw
+
 
 class NoiseConfig(NamedTuple):
     """Static config for one noise channel ('observations' or 'actions')."""
@@ -76,8 +78,8 @@ def apply_noise(cfg: NoiseConfig, gen: torch.Generator, tensor: torch.Tensor,
             if cfg.has_correlated:
                 mu_c = mu_c * s + 1.0 * (1.0 - s)
         corr_term = corr * var_c + mu_c
-        noise = corr_term + torch.randn(
-            tensor.shape, generator=gen, dtype=tensor.dtype,
+        noise = corr_term + env_draw(
+            torch.randn, tensor.shape, gen, dtype=tensor.dtype,
             device=tensor.device) * var + mu
     elif cfg.distribution == "uniform":
         lo, hi = cfg.lo_or_mu, cfg.hi_or_var
@@ -93,8 +95,8 @@ def apply_noise(cfg: NoiseConfig, gen: torch.Generator, tensor: torch.Tensor,
         # The reference feeds a *normal* draw into the correlated uniform
         # range; reproduced.
         corr_term = corr * (hi_c - lo_c) + lo_c
-        noise = corr_term + torch.rand(
-            tensor.shape, generator=gen, dtype=tensor.dtype,
+        noise = corr_term + env_draw(
+            torch.rand, tensor.shape, gen, dtype=tensor.dtype,
             device=tensor.device) * (hi - lo) + lo
     else:
         raise ValueError(f"Unknown noise distribution {cfg.distribution}")

@@ -12,6 +12,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import env_draw
+
 _ACTIVATIONS = {
     "tanh": torch.tanh,
     "relu": F.relu,
@@ -73,8 +75,8 @@ def sample_action(net: ActorCritic, obs, gen: torch.Generator):
     """Stochastic action + its log-prob under the diagonal Gaussian."""
     mean = policy_mean(net, obs)
     std = torch.exp(net.log_std)
-    eps = torch.randn(mean.shape, generator=gen, dtype=mean.dtype,
-                      device=mean.device)
+    eps = env_draw(torch.randn, mean.shape, gen, dtype=mean.dtype,
+                   device=mean.device)
     action = mean + std * eps
     logp = gaussian_logp(action, mean, net.log_std)
     return action, logp

@@ -22,6 +22,7 @@ from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
+from ..parallel.mesh import gather_envs, global_num_envs, is_main_process
 from ..sim.task import env_step
 from ..utils.convert import (actor_critic_params_from_jax,
                              actor_critic_params_to_jax)
@@ -148,6 +149,8 @@ class PPO:
         """Fresh policy/optimizer/iteration counter (the ADR loop restarts
         RL every iteration when ftuneRL is off)."""
         init_gen = torch.Generator().manual_seed(int(seed) + 12345)
+        # Every rank draws the same init from the same seed: the env axis
+        # never splits the policy.
         self.net = networks.ActorCritic(
             init_gen, *self._net_spec, activation=self.activation,
             state_dim=self._state_dim).to(self.device)
@@ -214,7 +217,8 @@ class PPO:
         net, clip = self.net, self.cliprange
         mean = networks.policy_mean(net, batch["obs"])
         logp = networks.gaussian_logp(batch["act"], mean, net.log_std)
-        ratio = torch.exp(logp - batch["logp"])
+        log_ratio = logp - batch["logp"]
+        ratio = torch.exp(log_ratio)
         adv = batch["adv"]
         pg1 = -adv * ratio
         pg2 = -adv * torch.clamp(ratio, 1.0 - clip, 1.0 + clip)
@@ -226,7 +230,10 @@ class PPO:
                                       (v_clipped - ret) ** 2).mean()
         ent = networks.entropy(net.log_std)
         total = pg_loss + self.vf_coef * vf_loss - self.ent_coef * ent
-        approx_kl = ((ratio - 1.0) - torch.log(ratio)).mean()
+        # log(ratio) taken as the log-ratio itself: the JAX package's
+        # jitted loss gets the same from XLA's log(exp(x)) = x, and a ratio
+        # that underflows to 0 then adds -1 - log_ratio, not inf.
+        approx_kl = ((ratio - 1.0) - log_ratio).mean()
         return total, pg_loss, vf_loss, approx_kl
 
     def update_from_traj(self, traj, last_val, perms):
@@ -280,8 +287,12 @@ class PPO:
                 "mean_episode_done": traj["done"].mean()}
 
     def train_iteration(self, distr, env_state, obs):
+        """Rollout of this rank's envs, all-gathered into the global
+        (T, N) batch, then the update, replicated on every rank."""
         env_state, obs, traj, last_val = self.rollout(distr, env_state, obs)
-        n = self.nsteps * self.task.num_envs
+        traj = gather_envs(traj, dim=1)
+        last_val = gather_envs(last_val)
+        n = self.nsteps * last_val.shape[0]
         perms = torch.stack([
             torch.randperm(n, generator=self.gen, device=self.device)
             for _ in range(self.noptepochs)])
@@ -306,14 +317,15 @@ class PPO:
             metrics = {k: float(v) for k, v in metrics.items()}  # syncs
             dt = time.perf_counter() - t0
             metrics["env_steps_per_sec"] = (
-                self.nsteps * self.task.num_envs / dt)
+                self.nsteps * global_num_envs(self.task.num_envs) / dt)
             it += 1
             self.current_learning_iteration = it
             if self.writer is not None and (it % log_interval == 0
                                             or it == num_learning_iterations):
                 for name, v in metrics.items():
                     self.writer.add_scalar(f"rl/{name}", v, it)
-            if it % self.save_interval == 0 or it == num_learning_iterations:
+            if is_main_process() and (it % self.save_interval == 0
+                                      or it == num_learning_iterations):
                 self.save(os.path.join(self.logdir, f"model_{it}.ckpt"))
         self.vec_env.state = env_state  # hand the env back
         return self

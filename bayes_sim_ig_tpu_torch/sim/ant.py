@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..dr import TaskNames, build_params_spec
+from ..parallel.mesh import env_draw
 from ..physics import (
     ArticulatedModel, LinkSpec, Geom, DynParams,
     forward_kinematics, forward_dynamics, integrate,
@@ -199,12 +200,12 @@ class Ant(Task):
         dev = params.device
         q0 = torch.as_tensor(m.neutral_q(), dtype=torch.float32, device=dev)
         q0[2] = START_Z
-        dq = torch.rand((n, m.nq), generator=gen, device=dev) * 0.16 - 0.08
+        dq = env_draw(torch.rand, (n, m.nq), gen, device=dev) * 0.16 - 0.08
         # Keep the base pose exact; jitter only the 1-dof joints.
         mask = torch.zeros(m.nq, device=dev)
         mask[7:] = 1.0
         q = q0[None, :] + dq * mask[None, :]
-        v = torch.rand((n, m.nv), generator=gen, device=dev) * 0.1 - 0.05
+        v = env_draw(torch.rand, (n, m.nv), gen, device=dev) * 0.1 - 0.05
         return AntState(q=q, v=v)
 
     def physics_step(self, state, actions, params, gen):

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..dr import TaskNames, build_params_spec
+from ..parallel.mesh import env_draw
 from ..physics import (
     ArticulatedModel, LinkSpec, Geom, DynParams,
     forward_kinematics, forward_dynamics, integrate,
@@ -172,11 +173,11 @@ class Anymal(Task):
         q0[2] = BASE_Z
         q0[self._act_q] = self._default_dof
         q = q0.expand(n, -1).clone()
-        jitter = torch.rand((n, 12), generator=gen, device=dev) * 0.1 - 0.05
+        jitter = env_draw(torch.rand, (n, 12), gen, device=dev) * 0.1 - 0.05
         q[:, self._act_q] += jitter
         v = torch.zeros((n, m.nv), device=dev)
-        commands = self._cmd_low + torch.rand(
-            (n, 3), generator=gen, device=dev) * (self._cmd_high
+        commands = self._cmd_low + env_draw(
+            torch.rand, (n, 3), gen, device=dev) * (self._cmd_high
                                                   - self._cmd_low)
         return AnymalState(q=q, v=v, commands=commands,
                            prev_actions=torch.zeros((n, 12), device=dev))

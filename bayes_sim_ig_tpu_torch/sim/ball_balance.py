@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..dr import TaskNames, build_params_spec
+from ..parallel.mesh import env_draw
 from ..physics import (
     ArticulatedModel, LinkSpec, Geom, DynParams,
     forward_kinematics, forward_dynamics, integrate,
@@ -177,10 +178,10 @@ class BallBalance(Task):
         q0[2] = TRAY_H
         q0[bq + 2] = TRAY_H + 0.02 + BALL_R
         q = q0.expand(n, -1).clone()
-        q[:, bq:bq + 2] = (torch.rand((n, 2), generator=gen, device=dev)
+        q[:, bq:bq + 2] = (env_draw(torch.rand, (n, 2), gen, device=dev)
                            * 0.3 - 0.15)
         v = torch.zeros((n, m.nv), device=dev)
-        v[:, bv + 3:bv + 5] = (torch.rand((n, 2), generator=gen, device=dev)
+        v[:, bv + 3:bv + 5] = (env_draw(torch.rand, (n, 2), gen, device=dev)
                                * 0.4 - 0.2)
         return BBotState(q=q, v=v)
 

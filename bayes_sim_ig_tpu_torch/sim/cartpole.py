@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..dr import TaskNames, build_params_spec
+from ..parallel.mesh import env_draw
 from ..utils.device import resolve_device
 from .task import Task
 
@@ -101,7 +102,7 @@ class Cartpole(Task):
 
     def init_state(self, gen, params):
         n = params.shape[0]
-        vals = torch.rand((n, 4), generator=gen, device=params.device)
+        vals = env_draw(torch.rand, (n, 4), gen, device=params.device)
         vals = vals * 0.2 - 0.1
         return CartpoleState(x=vals[:, 0], x_dot=vals[:, 1],
                              th=vals[:, 2], th_dot=vals[:, 3])

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..dr import TaskNames, build_params_spec
+from ..parallel.mesh import env_draw
 from ..physics import (
     ArticulatedModel, LinkSpec, DynParams, forward_dynamics, integrate,
     clamp_limits, carried_mass_factor,
@@ -113,10 +114,10 @@ class _FlyerBase(Task):
         dev = params.device
         q0 = torch.as_tensor(m.neutral_q(), dtype=torch.float32, device=dev)
         q0[2] = 1.0
-        pos_jitter = torch.rand((n, 3), generator=gen, device=dev) * 0.4 - 0.2
+        pos_jitter = env_draw(torch.rand, (n, 3), gen, device=dev) * 0.4 - 0.2
         q = q0.expand(n, -1).clone()
         q[:, 0:3] += pos_jitter
-        v = torch.rand((n, m.nv), generator=gen, device=dev) * 0.2 - 0.1
+        v = env_draw(torch.rand, (n, m.nv), gen, device=dev) * 0.2 - 0.1
         return FlyerState(q=q, v=v)
 
     def _thrust(self, q, actions):

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..dr import TaskNames, build_params_spec
+from ..parallel.mesh import env_draw
 from ..physics import (
     ArticulatedModel, LinkSpec, DynParams,
     forward_kinematics, forward_dynamics, integrate,
@@ -206,7 +207,7 @@ class FrankaCabinet(Task):
         q0 = torch.as_tensor(m.neutral_q(), dtype=torch.float32, device=dev)
         q0[self._dof_q_t] = self._default_dof
         q = q0.expand(n, -1).clone()
-        q[:, self._dof_q_t] += (torch.rand((n, 9), generator=gen, device=dev)
+        q[:, self._dof_q_t] += (env_draw(torch.rand, (n, 9), gen, device=dev)
                                 * 0.1 - 0.05)
         v = torch.zeros((n, m.nv), device=dev)
         return FrankaState(q=q, v=v,

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..dr import TaskNames, build_params_spec
+from ..parallel.mesh import env_draw
 from ..physics import (
     ArticulatedModel, LinkSpec, Geom, DynParams,
     forward_dynamics, forward_kinematics, integrate, clamp_limits,
@@ -262,10 +263,10 @@ class Humanoid(Task):
         dev = params.device
         q0 = torch.as_tensor(m.neutral_q(), dtype=torch.float32, device=dev)
         q0[2] = START_Z
-        jitter = torch.rand((n, 21), generator=gen, device=dev) * 0.1 - 0.05
+        jitter = env_draw(torch.rand, (n, 21), gen, device=dev) * 0.1 - 0.05
         q = q0.expand(n, -1).clone()
         q[:, self._act_q] += jitter
-        v = torch.rand((n, m.nv), generator=gen, device=dev) * 0.1 - 0.05
+        v = env_draw(torch.rand, (n, m.nv), gen, device=dev) * 0.1 - 0.05
         return HumanoidState(q=q, v=v)
 
     def physics_step(self, state, actions, params, gen):

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..dr import TaskNames, build_params_spec
+from ..parallel.mesh import env_draw
 from ..utils.device import resolve_device
 from .task import Task
 
@@ -72,7 +73,8 @@ class Pendulum(Task):
     # ------------------------------------------------------------------ #
     def init_state(self, gen, params):
         n = params.shape[0]
-        vals = torch.rand((2, n), generator=gen, device=params.device)
+        vals = env_draw(torch.rand, (2, n), gen, env_dim=1,
+                        device=params.device)
         return PendulumState(th=(vals[0] * 2.0 - 1.0) * math.pi,
                              thdot=vals[1] * 2.0 - 1.0)
 

@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from ..dr import TaskNames, build_params_spec
+from ..parallel.mesh import env_draw
 from ..physics import (
     ArticulatedModel, LinkSpec, Geom, DynParams,
     forward_kinematics, forward_dynamics, integrate,
@@ -264,7 +265,7 @@ class HandState(NamedTuple):
 
 def _random_quat(gen, n, device):
     """(n, 4) uniform random unit quaternions (w, x, y, z)."""
-    u = torch.rand((n, 3), generator=gen, device=device)
+    u = env_draw(torch.rand, (n, 3), gen, device=device)
     q = torch.stack([
         torch.sqrt(1 - u[:, 0]) * torch.sin(2 * np.pi * u[:, 1]),
         torch.sqrt(1 - u[:, 0]) * torch.cos(2 * np.pi * u[:, 1]),
@@ -571,18 +572,18 @@ class ShadowHand(Task):
                             device=dev).expand(n, -1).clone()
         # Cube resting on the palm (its top near PALM_Z), scaled half-size.
         s = self._obj_scale(params)
-        cube_xy = torch.rand((n, 2), generator=gen, device=dev) * 0.02 - 0.01
+        cube_xy = env_draw(torch.rand, (n, 2), gen, device=dev) * 0.02 - 0.01
         q[:, cq + 0] = 0.06 + cube_xy[:, 0]
         q[:, cq + 1] = cube_xy[:, 1]
         q[:, cq + 2] = PALM_Z + 0.012 + CUBE_HALF * s
         q[:, cq + 3] = 1.0  # identity quaternion
         # Slightly randomized hand dofs.
-        q[:, self._dof_q] += torch.rand((n, 24), generator=gen,
-                                        device=dev) * 0.2
+        q[:, self._dof_q] += env_draw(torch.rand, (n, 24), gen,
+                                      device=dev) * 0.2
         goal = _random_quat(gen, n, dev)
         if self._grav_cfg is not None:
             g_var = float(self._grav_cfg["range"][1])
-            gravity_dz = torch.randn(n, generator=gen, device=dev) * g_var
+            gravity_dz = env_draw(torch.randn, (n,), gen, device=dev) * g_var
         else:
             gravity_dz = torch.zeros(n, device=dev)
         z = params.new_zeros

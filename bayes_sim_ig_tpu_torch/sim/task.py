@@ -23,6 +23,7 @@ import torch
 
 from ..distributions.device import DeviceDistr, sample_distr
 from ..dr.noise import NoiseConfig, apply_noise
+from ..parallel.mesh import env_draw
 
 CLIP_OBSERVATIONS = 100.0
 CLIP_ACTIONS = 1.0
@@ -81,6 +82,11 @@ class Task:
         return torch.zeros(state_batch_size(state), dtype=torch.bool,
                            device=state[0].device)
 
+    def get_img(self, env_state: "EnvState", env_id: int = 0,
+                height: int = 200, width: int = 200):
+        """Optional single-env frame for TensorBoard videos."""
+        return None
+
     def privileged_state(self, task_state, params) -> torch.Tensor:
         """(N, state_dim) privileged state for the asymmetric critic: the
         noise-free simulator state, every field flattened per env."""
@@ -125,8 +131,8 @@ def env_full_reset(task: Task, distr: DeviceDistr, gen: torch.Generator,
         progress=torch.zeros(n, dtype=torch.int32, device=dev),
         reset_buf=torch.zeros(n, dtype=torch.int32, device=dev),
         frame_count=int(frame_count),
-        obs_corr=torch.randn((n, task.obs_dim), generator=gen, device=dev),
-        act_corr=torch.randn((n, task.act_dim), generator=gen, device=dev))
+        obs_corr=env_draw(torch.randn, (n, task.obs_dim), gen, device=dev),
+        act_corr=env_draw(torch.randn, (n, task.act_dim), gen, device=dev))
     obs = torch.clamp(task.observe(state.task_state, state.params),
                       -CLIP_OBSERVATIONS, CLIP_OBSERVATIONS)
     return state, obs
@@ -157,11 +163,11 @@ def env_step(task: Task, distr: DeviceDistr, state: EnvState,
     params = torch.where(need_reset[:, None], new_params, state.params)
     obs_corr = torch.where(
         need_reset[:, None],
-        torch.randn(state.obs_corr.shape, generator=gen, device=dev),
+        env_draw(torch.randn, state.obs_corr.shape, gen, device=dev),
         state.obs_corr)
     act_corr = torch.where(
         need_reset[:, None],
-        torch.randn(state.act_corr.shape, generator=gen, device=dev),
+        env_draw(torch.randn, state.act_corr.shape, gen, device=dev),
         state.act_corr)
     fresh = task.init_state(gen, params)
     state_begin = _tree_select(need_reset, fresh, state.task_state)

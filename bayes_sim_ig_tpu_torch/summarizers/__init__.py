@@ -15,10 +15,13 @@ from __future__ import annotations
 
 import torch
 
+from .signature import path_signature, signature_depth
+
 __all__ = [
     "pad_states_actions", "summary_start", "summary_waypts",
     "cross_correlation", "summary_corr", "summary_corrdiff",
-    "summary_signatory", "get_summarizer",
+    "summary_signatory", "signature_depth", "path_signature",
+    "get_summarizer",
 ]
 
 
@@ -98,10 +101,18 @@ def summary_corr(states, actions):
 
 
 def summary_signatory(states, actions):
-    """Truncated path signatures; ``summarizers/signature.py`` is not
-    ported yet."""
-    raise NotImplementedError(
-        "summary_signatory is not yet ported to bayes_sim_ig_tpu_torch")
+    """Truncated path signatures of time-augmented (state, action) paths:
+    channels are the time ids 1..L, then the states, then the actions.
+    Depth via ``signature_depth``."""
+    assert states.ndim == 3, "states should be batch x time x state_dim"
+    bsz, path_len, _ = states.shape
+    states, actions = pad_states_actions(states, actions, path_len)
+    time_ids = torch.arange(1, path_len + 1, dtype=states.dtype,
+                            device=states.device)[None, :, None].expand(
+                                bsz, path_len, 1)
+    paths = torch.cat([time_ids, states, actions], dim=-1)
+    depth = signature_depth(paths.shape[-1])
+    return path_signature(paths, depth=depth)
 
 
 _REGISTRY = {

@@ -23,6 +23,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import env_draw, gather_envs, global_num_envs
 from ..sim.task import env_full_reset, env_step
 
 
@@ -35,8 +36,8 @@ def policy_ones(act, gen):
 
 def policy_random(act, gen):
     # NB: U[0, 1], not U[-1, 1], preserved from the reference.
-    return torch.rand(act.shape, generator=gen, dtype=act.dtype,
-                      device=act.device)
+    return env_draw(torch.rand, act.shape, gen, dtype=act.dtype,
+                    device=act.device)
 
 
 def policy_rl(act, gen):
@@ -47,8 +48,8 @@ def policy_rl_randomized(act, gen, frac_rnd=0.1):
     """With prob frac_rnd (one draw per step, whole batch) replace the
     action tensor with U[-1, 1]."""
     rnd = torch.rand((), generator=gen, device=act.device)
-    random_act = torch.rand(act.shape, generator=gen, dtype=act.dtype,
-                            device=act.device) * 2.0 - 1.0
+    random_act = env_draw(torch.rand, act.shape, gen, dtype=act.dtype,
+                          device=act.device) * 2.0 - 1.0
     return torch.where(rnd < frac_rnd, random_act, act)
 
 
@@ -57,8 +58,8 @@ def policy_grasp(act, gen, excitation_dims):
     dims jitter around neutral (see the JAX package's policy_grasp)."""
     base = torch.zeros_like(act)
     base[..., list(excitation_dims)] = 1.0
-    jitter = torch.rand(act.shape, generator=gen, dtype=act.dtype,
-                        device=act.device) * 0.6 - 0.3
+    jitter = env_draw(torch.rand, act.shape, gen, dtype=act.dtype,
+                      device=act.device) * 0.6 - 0.3
     return torch.clamp(base + jitter, -1.0, 1.0)
 
 
@@ -153,7 +154,8 @@ def collect_trajectories(
     shape). ``max_traj_len`` overrides episode length to max_traj_len + 1
     steps of bookkeeping. ``visualize`` renders env 0 of the first round
     via the task's ``render_obs_frame``. Draws come from ``gen`` (default:
-    the PPO trainer's generator)."""
+    the PPO trainer's generator). Under a global env mesh each rank steps
+    its envs and every rank returns the episodes of all envs."""
     vec_env = ppo.vec_env
     task = vec_env.task
     distr = vec_env._distr
@@ -164,14 +166,16 @@ def collect_trajectories(
         gen = ppo.gen
     collect_policy = (policy_rl if collect_policy_fxn is None
                       else collect_policy_fxn)
-    n_rounds = -(-num_trajs // task.num_envs)  # ceil
+    num_envs = global_num_envs(task.num_envs)
+    n_rounds = -(-num_trajs // num_envs)  # ceil
     rounds = []
     for r in range(n_rounds):
-        rounds.append(_collect_round(
+        # This rank's envs, all-gathered into the round of every env.
+        rounds.append(gather_envs(_collect_round(
             task, ppo.policy_apply, collect_policy, max_episode_length,
-            ppo.net, distr, gen))
+            ppo.net, distr, gen)))
         if verbose:
-            done = min((r + 1) * task.num_envs, num_trajs)
+            done = min((r + 1) * num_envs, num_trajs)
             print(f"collected {done} trajs")
     params, states, actions, rewards = (
         torch.cat(parts, dim=0)[:num_trajs] for parts in zip(*rounds))

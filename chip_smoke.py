@@ -79,8 +79,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      width (100 envs), for 2 ADR iterations; it launches no kernel;
   8. the ADR loop on each of Anymal (4000 envs, 13 params), Quadcopter
      (8192, 9), Ingenuity (4096, 9), BallBalance (128, 7) and
-     FrankaCabinet (2048, 19) at full width (ADR_PHASES; 2 ADR iterations,
-     1 on Quadcopter, Ingenuity and FrankaCabinet): checks the SPD
+     FrankaCabinet (2048, 19) at full width (ADR_PHASES; 1 ADR iteration
+     each): checks the SPD
      factor and substitute kernels and no tree kernel on the four dense
      tasks, the tree kernels and no SPD kernel on BallBalance, and the
      same as phase 4; on Anymal also the env step's wall and device time;
@@ -91,7 +91,20 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      kernel, the same as phase 4, and the env step's wall and device
      time; then 20 steps of shadow_hand_grasp_full.yaml (2048 envs, the
      211-dim full_state obs) under its grasp policy: the obs and the
-     force, torque and dof-force blocks finite, and the step time.
+     force, torque and dof-force blocks finite, and the step time;
+ 10. path signatures on the card (summarizers/signature.py: plain
+     einsum/cumsum, no kernel of their own) at cartpole_more.yaml's
+     collection shape (10000 time-augmented paths of 20 steps, 6
+     channels, depth 3) and at a depth-2 shape (2000 paths of 50 steps,
+     23 channels), against float64 on the CPU (rtol 1e-4, atol 1e-5 of
+     each level's largest entry), with the device time per call;
+ 11. the ADR loop on cartpole_more.yaml at full width (512 envs, 13
+     params, summary_signatory: 258 features, MDNN [128, 128] x 10,
+     trainTrajs 10000 uncut) for 2 ADR iterations; it launches no kernel;
+ 12. parallel: a one-rank NCCL process group (initialize_distributed on
+     a free local port), an all_gather and a broadcast of a CUDA tensor
+     checked for values, and setup_parallelism(512), which must leave a
+     single device and no mesh; the group is destroyed after.
 Each ADR phase sets every kernel's launch count to 0 just before it runs
 and reads the counts just after. The line before the card's line is a
 JSON object with each kernel's numbers, its bound (ops/bounds.py: the
@@ -1105,7 +1118,9 @@ def _env_step_profile(env, steps=20, act=None):
 # Each runs through bayes_sim_main.main at the config's widths for 2 ADR
 # iterations of 5 PPO iterations (1 on Quadcopter, Ingenuity and
 # FrankaCabinet, which no benchmark cell names, to keep the script inside
-# its time with ShadowHand's phase); trainTrajs is cut to 1000 (Ant,
+# its time with ShadowHand's phase, and on Anymal and BallBalance, to keep
+# it there with the signature and cartpole_more phases; Ant, Humanoid and
+# ShadowHand run the posterior refit); trainTrajs is cut to 1000 (Ant,
 # Humanoid, ShadowHand: one collection round), 2000 or 512 (BallBalance,
 # with 128 envs), and a surrogate-real episode longer than 1000 steps to
 # 1000 (Anymal: episodeLength_s 50 -> 1000/60; Ingenuity:
@@ -1119,13 +1134,13 @@ ADR_PHASES = [
     ("Humanoid", "humanoid", 4096, 37, [400, 200, 100], 32, 50,
      "summary_corrdiff", _TREE, 1000, {}, 2),
     ("Anymal", "anymal", 4000, 13, [256, 128, 64], 24, 50,
-     "summary_corrdiff", _SPD, 2000, {"episodeLength_s": 1000 / 60}, 2),
+     "summary_corrdiff", _SPD, 2000, {"episodeLength_s": 1000 / 60}, 1),
     ("Quadcopter", "quadcopter", 8192, 9, [256, 128, 64], 16, 10,
      "summary_start", _SPD, 2000, {}, 1),
     ("Ingenuity", "ingenuity", 4096, 9, [256, 128, 64], 16, 10,
      "summary_start", _SPD, 2000, {"maxEpisodeLength": 1000}, 1),
     ("BallBalance", "ball_balance", 128, 7, [128, 64, 32], 16, 20,
-     "summary_corrdiff", _TREE, 512, {}, 2),
+     "summary_corrdiff", _TREE, 512, {}, 1),
     ("FrankaCabinet", "franka_cabinet", 2048, 19, [256, 128, 64], 16, 30,
      "summary_corrdiff", _SPD, 2000, {}, 1),
     ("ShadowHand", "shadow_hand", 1024, 32, [512, 256, 128], 8, 30,
@@ -1233,6 +1248,138 @@ def phase_grasp_full_probe(steps=20):
           f"operations a step", flush=True)
 
 
+def _level_check(name, got, want, d, depth):
+    """Each signature level within rtol 1e-4 and an atol of 1e-5 of its
+    largest entry: a level is a float32 sum over the path's steps, and
+    entries near 0 sit beside entries of the level's full scale. Returns
+    the largest error over the level's scale."""
+    worst, off = 0.0, 0
+    for k in range(1, depth + 1):
+        lvl = slice(off, off + d ** k)
+        off += d ** k
+        g, w = got[:, lvl], want[:, lvl]
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max())
+        bad = ((g - w).abs() > 1e-4 * w.abs() + 1e-5 * scale).sum()
+        if not torch.isfinite(g).all() or int(bad):
+            raise AssertionError(f"{name}: level {k} off by {err:.3g} "
+                                 f"(scale {scale:.3g}, {int(bad)} entries)")
+        worst = max(worst, err / scale)
+    return worst
+
+
+def phase_signature():
+    """path_signature on the card against float64 on the CPU: at
+    cartpole_more.yaml's collection shape (10000 paths of 20 steps, the
+    time channel, 4 obs and 1 action: depth 3, 258 features) and at a
+    depth-2 shape (2000 paths of 50 steps, 23 channels: 552 features)."""
+    from bayes_sim_ig_tpu_torch.summarizers import (
+        path_signature, signature_depth, summary_signatory,
+    )
+    gen = torch.Generator().manual_seed(0)
+    for b, t, d in ((10000, 20, 6), (2000, 50, 23)):
+        depth = signature_depth(d)
+        paths = torch.randn(b, t, d, generator=gen)
+        if d == 6:  # cartpole_more's time ids 1..20 in channel 0
+            paths[:, :, 0] = torch.arange(1, t + 1, dtype=torch.float32)
+        x = paths.to("cuda:0")
+        got = path_signature(x, depth)
+        torch.cuda.synchronize()
+        want = path_signature(paths.double(), depth)
+        rel = _level_check(f"path_signature ({b}, {t}, {d})", got.cpu(),
+                           want.float(), d, depth)
+        ms = _median_ms(lambda: path_signature(x, depth), n=20)
+        dev = _device_ms(lambda: path_signature(x, depth), n=10)
+        print(f"[signature] ({b}, {t}, {d}) depth {depth}: "
+              f"{tuple(got.shape)} on cuda, max error {rel:.3g} of its "
+              f"level's largest entry against float64; {ms:.4f} ms per "
+              f"call (median of 20, CUDA events), device {_fmt(dev)} per "
+              f"call (profiler)", flush=True)
+    states = torch.randn(64, 21, 4, generator=gen).to("cuda:0")
+    actions = torch.rand(64, 21, 1, generator=gen).to("cuda:0")
+    feats = summary_signatory(states, actions)
+    assert feats.shape == (64, 258) and bool(torch.isfinite(feats).all())
+
+
+def phase_adr_cartpole_more():
+    """cfg/cartpole_more.yaml at full width, uncut but in realIters (2 of
+    100) and PPO iterations (5 a ADR iteration): summary_signatory on
+    time-augmented paths of 1 + 4 + 1 channels, depth 3."""
+    from bayes_sim_ig_tpu_torch.utils.args import load_config
+    cfg = load_config(os.path.join(HERE, "bayes_sim_ig_tpu_torch", "cfg",
+                                   "cartpole_more.yaml"))
+    cfg["bayessim"].update(realIters=2)
+    bs = cfg["bayessim"]
+    assert cfg["env"]["numEnvs"] == 512 and bs["trainTrajs"] == 10000
+    assert bs["summarizerFxn"] == "summary_signatory"
+    assert bs["modelClass"] == "MDNN" and bs["components"] == 10
+    assert bs["hiddenLayers"] == [128, 128] and bs["trainTrajLen"] == 20
+    out, launches, secs, timer = _run_adr("Cartpole", cfg, "cartpole_more")
+    if any(launches.values()):
+        raise AssertionError(f"the cartpole_more path launched a kernel: "
+                             f"{launches}")
+    model = out["bsim"].model
+    assert type(model).__name__ == "MDNN" and model.input_dim == 258
+    assert model.net.mu.out_features == 13 * 10
+    print(f"[adr] Cartpole cartpole_more.yaml (summary_signatory, 258 "
+          f"features) 512 envs, 2 ADR iterations in {secs:.2f} s (per "
+          f"iteration: {', '.join(f'{s:.2f}' for s in out['iter_secs'])} "
+          f"s; phases: {timer.line()}); launches no kernel (all counts 0); "
+          f"13-dim posteriors finite; model, refit, policy and env tensors "
+          f"on cuda", flush=True)
+    return launches
+
+
+def phase_parallel():
+    """A one-rank NCCL group: collectives on a CUDA tensor, then
+    setup_parallelism, which must leave one device and no mesh."""
+    import io
+    import socket
+
+    import torch.distributed as dist
+
+    from bayes_sim_ig_tpu_torch.bayes_sim_main import setup_parallelism
+    from bayes_sim_ig_tpu_torch.parallel import (
+        get_global_mesh, initialize_distributed, set_global_mesh,
+    )
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    if not initialize_distributed(coordinator_address=f"localhost:{port}",
+                                  num_processes=1, process_id=0,
+                                  backend="nccl", timeout_s=120):
+        raise AssertionError("initialize_distributed did not initialize")
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        if initialize_distributed() is not False:
+            raise AssertionError("a second initialize_distributed joined")
+        x = torch.arange(12, dtype=torch.float32, device="cuda:0")
+        parts = [torch.empty_like(x)]
+        dist.all_gather(parts, x)
+        y = x * 3.0 + 1.0
+        dist.broadcast(y, src=0)
+        torch.cuda.synchronize()
+        if not (torch.equal(parts[0], x)
+                and torch.equal(y, torch.arange(12, device="cuda:0") * 3.0
+                                + 1.0)):
+            raise AssertionError("NCCL all_gather/broadcast values differ")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            mesh = setup_parallelism(512, "cuda:0")
+        said = buf.getvalue().strip()
+        if (mesh is not None or get_global_mesh() is not None
+                or "single device (1 visible)" not in said):
+            raise AssertionError(f"setup_parallelism(512): {mesh}, {said}")
+    finally:
+        set_global_mesh(None)
+        dist.destroy_process_group()
+    print(f"[parallel] NCCL world 1 on localhost:{port}: all_gather and "
+          f"broadcast of a CUDA tensor exact; setup_parallelism(512): "
+          f"'{said}'; group destroyed; {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+
 def _kernel_entry(name, source, replaces, launches, t, library_call=None,
                   **extra):
     """One kernel's object of the kernels line. ``launches`` is the sum
@@ -1269,6 +1416,9 @@ def main():
     for spec in rest:
         runs[spec[0]] = phase_adr(*spec)
     phase_grasp_full_probe()
+    phase_signature()
+    runs["cartpole_more"] = phase_adr_cartpole_more()
+    phase_parallel()
 
     def by_task(kernel):
         return {task: c[kernel] for task, c in runs.items() if c[kernel]}

@@ -21,5 +21,10 @@ setup(
             sources=["bayes_sim_ig_tpu/ops/native/halton.c"],
             extra_compile_args=["-O3"],
         ),
+        Extension(
+            "bayes_sim_ig_tpu_torch.ops.native._halton_native",
+            sources=["bayes_sim_ig_tpu_torch/ops/native/halton.c"],
+            extra_compile_args=["-O3"],
+        ),
     ],
 )

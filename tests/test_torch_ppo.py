@@ -172,6 +172,49 @@ def test_one_ppo_update_matches_the_jax_chain():
     assert float(metrics["lr"]) == pytest.approx(want_lr, rel=1e-6)
 
 
+def test_approx_kl_stays_finite_where_a_ratio_underflows():
+    """A sample whose old log-prob lies 200 above its new one: exp of the
+    log-ratio underflows to 0 in float32. The JAX package's jitted loss
+    reads log(exp(d)) as d (XLA's simplifier), so its approx KL stays
+    finite and drives the adaptive lr; the port must give the same value,
+    not inf (found by experiments/ppo_stream_injection.py --forced: seed
+    1, iterations 48 and 51)."""
+    ppo = _ppo()
+    params = jnet.init_actor_critic(jax.random.PRNGKey(0), OBS, ACT,
+                                    [16, 16], [16, 16], 1.0)
+    ppo.net.load_state_dict(actor_critic_params_from_jax(
+        jax.tree_util.tree_map(np.asarray, params)))
+    rs = np.random.RandomState(3)
+    obs = rs.randn(16, OBS).astype(np.float32)
+    mean = np.asarray(jnet.policy_mean(params, jnp.asarray(obs), "elu"))
+    act = (mean + rs.randn(16, ACT)).astype(np.float32)
+    logp = np.asarray(jnet.gaussian_logp(jnp.asarray(act),
+                                         jnp.asarray(mean),
+                                         params["log_std"]))
+    logp_old = (logp + rs.randn(16) * 0.05).astype(np.float32)
+    logp_old[5] += 200.0
+    val, ret, adv = rs.randn(3, 16).astype(np.float32)
+
+    @jax.jit
+    def jax_kl(p):
+        # rl/ppo.py:223-241, the JAX package's loss_fn as jitted there.
+        m = jnet.policy_mean(p, jnp.asarray(obs), "elu")
+        ratio = jnp.exp(jnet.gaussian_logp(jnp.asarray(act), m,
+                                           p["log_std"])
+                        - jnp.asarray(logp_old))
+        return ((ratio - 1.0) - jnp.log(ratio)).mean()
+
+    want = float(jax_kl(params))
+    batch = {k: torch.from_numpy(v) for k, v in (
+        ("obs", obs), ("act", act), ("logp", logp_old), ("val", val),
+        ("ret", ret), ("adv", adv))}
+    with torch.no_grad():
+        total, _, _, kl = ppo.loss_fn(batch)
+    assert np.isfinite(want) and want > 10.0
+    assert float(kl) == pytest.approx(want, rel=1e-5)
+    assert torch.isfinite(total)
+
+
 def test_non_finite_minibatch_keeps_params_and_adam_state():
     ppo = _ppo()
     params = list(ppo.net.parameters())

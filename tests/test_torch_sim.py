@@ -250,3 +250,16 @@ def test_collect_policies():
     assert torch.equal(grasp(act, gen), torch.ones_like(act))
     with pytest.raises(KeyError):
         get_collect_policy("policy_nope")
+
+
+def test_base_task_get_img_is_none_like_jax():
+    """Task.get_img, the optional single-env frame: None unless a task
+    draws one (the JAX package's sim/task.py:102)."""
+    env = make_env("Cartpole", _cfg(4), seed=0, device="cpu")
+    spec = env.task.params_spec
+    env.set_distr(to_device_distr(Uniform(spec.lows, spec.highs)))
+    env.reset()
+    assert env.task.get_img(env.state) is None
+    assert env.task.get_img(env.state, env_id=3, height=8, width=8) is None
+    jtask = JaxCartpole(_cfg(4))
+    assert jtask.get_img(None) is None

@@ -67,9 +67,3 @@ def test_pad_states_actions_matches():
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
     np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
 
-
-def test_signatory_not_yet_ported():
-    states, actions = _inputs((2, 5, 5, 2, 1))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tsum.get_summarizer("summary_signatory")(torch.from_numpy(states),
-                                                 torch.from_numpy(actions))
