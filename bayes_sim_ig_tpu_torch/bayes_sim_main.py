@@ -353,6 +353,8 @@ def _adr_loop(args, cfg_env, cfg_train, device):
                 args.logdir, real_iter_id, sim_params_distr, ppo,
                 all_real_states, all_real_actions,
                 bsim=bsim if bs_cfg["ftune"] else None)
+    # The ADR phase ends: its captured steps and their memory go.
+    env.free_step_graphs()
     writer.close()
     rl_writer.close()
     return {"bsim": bsim, "ppo": ppo, "env": env,

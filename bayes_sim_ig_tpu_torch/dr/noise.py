@@ -2,8 +2,9 @@
 
 Port of ``bayes_sim_ig_tpu/dr/noise.py``: gaussian or uniform noise,
 additive or scaling, with 'linear'/'constant' schedules over the global
-frame count, plus a correlated component that is drawn once per
-randomization refresh and held fixed in the env state.
+frame count (a device scalar, as in the JAX package), plus a correlated
+component that is drawn once per randomization refresh and held fixed in
+the env state.
 """
 
 from __future__ import annotations
@@ -43,22 +44,26 @@ def make_noise_config(cfg: dict) -> NoiseConfig:
         has_correlated="range_correlated" in cfg)
 
 
-def schedule_scaling(cfg: NoiseConfig, frame_count: int) -> float:
-    """Schedule multiplier at the (host-side) global frame count."""
-    frame = float(frame_count)
+def schedule_scaling(cfg: NoiseConfig,
+                     frame_count: torch.Tensor) -> torch.Tensor:
+    """Schedule multiplier at the global frame count, a () int32 tensor on
+    the env's device: float32 on that device, as in the JAX package, so a
+    captured step reads the count of the step it replays."""
+    frame = frame_count.to(torch.float32)
     if cfg.schedule == "linear":
         if cfg.schedule_steps <= 0:
             # 'linear' with no/zero schedule_steps would otherwise pin the
             # multiplier at 0 forever; treat it as fully ramped.
-            return 1.0
-        return min(frame, cfg.schedule_steps) / cfg.schedule_steps
+            return torch.ones_like(frame)
+        steps = float(cfg.schedule_steps)
+        return torch.clamp(frame, max=steps) / steps
     if cfg.schedule == "constant":
-        return 0.0 if frame < cfg.schedule_steps else 1.0
-    return 1.0
+        return torch.where(frame < cfg.schedule_steps, 0.0, 1.0)
+    return torch.ones_like(frame)
 
 
 def apply_noise(cfg: NoiseConfig, gen: torch.Generator, tensor: torch.Tensor,
-                corr: torch.Tensor, frame_count: int) -> torch.Tensor:
+                corr: torch.Tensor, frame_count: torch.Tensor) -> torch.Tensor:
     """Applies scheduled correlated + white noise to ``tensor``.
 
     ``corr`` is a standard-normal draw with ``tensor``'s shape held fixed

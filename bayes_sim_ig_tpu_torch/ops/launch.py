@@ -1,5 +1,6 @@
 """What the wrappers of the SPD and tree kernels share: the device pick,
-the check of a launch's tensors, and the launch itself with its count.
+the check of a launch's tensors, and the launch itself with its count;
+and the counts of every kernel, read and set by name.
 
 A wrapper runs its plain version when every tensor it is given lies on
 the CPU (``on_cpu``), and otherwise launches its kernel: ``check_cuda``
@@ -45,3 +46,23 @@ def launch(library: str, fns: Dict[str, Callable], counts: Dict[str, int],
         raise RuntimeError(f"{library} {entry} kernel launch failed: CUDA "
                            f"error {err}")
     counts[entry] += 1
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every hand-written kernel's launches by this process, by kernel
+    name: ``rff_features``, ``spd_<entry>_lanes``, ``tree_ltdl_<entry>``."""
+    from . import rff_kernel, spd_kernel, tree_solve
+    return {"rff_features": rff_kernel.LAUNCHES,
+            **{f"spd_{e}_lanes": c for e, c in spd_kernel.LAUNCHES.items()},
+            **{f"tree_ltdl_{e}": c for e, c in tree_solve.LAUNCHES.items()}}
+
+
+def set_launch_counts(counts: Dict[str, int]):
+    """Sets the counts ``launch_counts`` reads (a CUDA graph puts back
+    what its capture counted, and adds it again at every replay)."""
+    from . import rff_kernel, spd_kernel, tree_solve
+    rff_kernel.LAUNCHES = counts["rff_features"]
+    for e in spd_kernel.LAUNCHES:
+        spd_kernel.LAUNCHES[e] = counts[f"spd_{e}_lanes"]
+    for e in tree_solve.LAUNCHES:
+        tree_solve.LAUNCHES[e] = counts[f"tree_ltdl_{e}"]

@@ -82,8 +82,8 @@ def _rows(x, device=None):
     """Normalizes a per-env 3-vector argument to (3, N): accepts a static
     (3,) vector or an env-last (3, N) tensor. Env-first (N, 3) input is
     REJECTED rather than inferred: a (3, 3) array is ambiguous between the
-    two layouts."""
-    x = torch.as_tensor(x, dtype=torch.float32, device=device)
+    two layouts. A host vector is made a tensor once (``_const``)."""
+    x = _const(x, device)
     if x.ndim == 1:
         return x[:, None]
     if x.shape[0] != 3:
@@ -253,7 +253,7 @@ def sphere_plane_pair_forces(model: ArticulatedModel, kin: Kinematics,
     # radius-based cap would overshoot and reverse the slip each step.
     arm_sq = ((contact_pt - p_s) ** 2).sum(0)
     m_eff_t = 1.0 / (1.0 / m_s + arm_sq / i_mean)
-    mu_n = torch.as_tensor(mu, dtype=torch.float32, device=dev).expand(n)
+    mu_n = _const(mu, dev).expand(n)
     cap = torch.minimum(mu_n * f_n_mag, m_eff_t * v_t_norm / dt)
     f_t = -v_t / v_t_norm[None] * cap[None]
     force = n_w * f_n_mag[None] + f_t                          # on sphere
@@ -471,8 +471,10 @@ def sphere_box_pairs_forces(model: ArticulatedModel, kin: Kinematics,
     n_out = delta / torch.clamp(dist_out, min=1e-9)[:, None, :]
     # Inside: the least-penetrated face (one-hot over the 3 axes).
     s_in = half[None] - torch.abs(local)                       # (P, 3, N)
-    sel = torch.movedim(torch.nn.functional.one_hot(
-        torch.argmin(s_in, dim=1), 3), -1, 1).to(local.dtype)
+    # One-hot by comparison: F.one_hot checks its classes with a host sync
+    # on the CPU.
+    sel = (torch.argmin(s_in, dim=1, keepdim=True)
+           == torch.arange(3, device=dev)[None, :, None]).to(local.dtype)
     sgn = torch.sign(local)
     n_in = sel * sgn
     pt_in = local * (1.0 - sel) + sel * sgn * half[None]
@@ -677,6 +679,26 @@ def _padded_rows(sets: Sequence[Sequence[int]], nv: int) -> np.ndarray:
     return idx
 
 
+def _scatter_table(flat: np.ndarray, nv: int) -> np.ndarray:
+    """The inverse of a flat (F,) dof index: row d lists, ascending, the
+    positions p with flat[p] == d, padded with F (``_scatter_sum``'s zero
+    row): (nv, max count) int64."""
+    pos = [np.flatnonzero(flat == d) for d in range(nv)]
+    width = max((len(p) for p in pos), default=0)
+    out = np.full((nv, max(width, 1)), len(flat), np.int64)
+    for d, p in enumerate(pos):
+        out[d, :len(p)] = p
+    return out
+
+
+def _scatter_sum(vals: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """(F, N) rows summed into (nv, N) by ``_scatter_table``: each dof's
+    rows in ascending position, the same sum at every run. (index_add_
+    adds with atomics on a card, in an order that changes between runs.)"""
+    padded = torch.cat([vals, vals.new_zeros(1, vals.shape[1])])
+    return padded[table].sum(1)
+
+
 def _impulse_tables(model: ArticulatedModel, row_links_a, row_links_b,
                     links_a, links_b, device) -> dict:
     """Static tables of one row layout, built once per model and device:
@@ -705,8 +727,12 @@ def _impulse_tables(model: ArticulatedModel, row_links_a, row_links_b,
         sup = _padded_rows(support, model.nv)
         t = dict(d_anc=d_anc, d_anc_t=idx(d_anc),
                  share=idx(share.astype(np.float32)),
-                 clos=idx(clos), clos_flat=idx(clos.reshape(-1)),
-                 sup=idx(sup), sup_flat=idx(sup.reshape(-1)),
+                 clos=idx(clos),
+                 clos_scatter=idx(_scatter_table(clos.reshape(-1),
+                                                 model.nv)),
+                 sup=idx(sup),
+                 sup_scatter=idx(_scatter_table(sup.reshape(-1),
+                                                model.nv)),
                  sup_max=sup.shape[1])
         cache[key] = t
     return t
@@ -781,7 +807,7 @@ def _prepare_y(model: ArticulatedModel, factor, rows) -> dict:
     invD = 1.0 / D                                             # (nv, N)
     diag = (Y * Y * invD[clos]).sum(1) + 1e-9                  # (R, N)
     return dict(mode="Y", Y=Y, J_c=Jc, clos=clos,
-                clos_flat=t["clos_flat"], invD=invD, diag=diag,
+                clos_scatter=t["clos_scatter"], invD=invD, diag=diag,
                 share=t["share"], mu=rows["mu"], P=rows["P"],
                 fidx=rows["fidx"], chains=chains, H=H, nv=nv,
                 dirs=rows["dirs"], cpt=rows["cpt"],
@@ -802,10 +828,10 @@ def _prepare_x(model: ArticulatedModel, factor, rows) -> dict:
     if t["sup_max"] < 0.75 * nv:
         sup = t["sup"]
         J_c = J.gather(1, sup[:, :, None].expand(R, sup.shape[1], n))
-        sup_flat = t["sup_flat"]
+        sup_scatter = t["sup_scatter"]
     else:
-        sup, J_c, sup_flat = None, J, None
-    return dict(mode="X", J_c=J_c, sup=sup, sup_flat=sup_flat, X=X,
+        sup, J_c, sup_scatter = None, J, None
+    return dict(mode="X", J_c=J_c, sup=sup, sup_scatter=sup_scatter, X=X,
                 diag=diag, share=t["share"], mu=rows["mu"], P=rows["P"],
                 fidx=rows["fidx"], nv=nv, dirs=rows["dirs"],
                 cpt=rows["cpt"], row_links_a=rows["row_links_a"],
@@ -926,9 +952,8 @@ def contact_pairs_impulse_apply(payload, v, depth, dt, beta=0.2,
             cap2 = (mu * lam_n[f_t]).repeat(2, 1)
             lam = torch.cat([lam_n, torch.clamp(lam[P:], -cap2, cap2)], 0)
         if mode == "Y":
-            w = vT.new_zeros(payload["nv"], n).index_add_(
-                0, payload["clos_flat"],
-                (Y * lam[:, None]).reshape(-1, n))
+            w = _scatter_sum((Y * lam[:, None]).reshape(-1, n),
+                             payload["clos_scatter"])
         else:
             w = (X * lam[:, None]).sum(0)                      # (nv, N)
     if mode == "Y":
@@ -954,13 +979,12 @@ def impulse_generalized_force(payload, lam, dt):
     J^T lam / dt, from the payload's own compact Jacobian (both routes)."""
     n = lam.shape[-1]
     if payload["mode"] == "Y":
-        J_c, flat = payload["J_c"], payload["clos_flat"]
+        J_c, table = payload["J_c"], payload["clos_scatter"]
     else:
-        J_c, flat = payload["J_c"], payload["sup_flat"]
-        if flat is None:
+        J_c, table = payload["J_c"], payload["sup_scatter"]
+        if table is None:
             return (J_c * lam[:, None]).sum(0) / dt
-    return lam.new_zeros(payload["nv"], n).index_add_(
-        0, flat, (J_c * lam[:, None]).reshape(-1, n)) / dt
+    return _scatter_sum((J_c * lam[:, None]).reshape(-1, n), table) / dt
 
 
 def sphere_sphere_impulse(model: ArticulatedModel, kin: Kinematics, factor,

@@ -684,9 +684,8 @@ def forward_dynamics(model: ArticulatedModel, q, v, tau,
         kdT = el(drive_kd) if drive_kd is not None else torch.zeros_like(kpT)
         p_term = kpT * (el(drive_target) - q_dofT)
         if drive_effort is not None:
-            effort = torch.as_tensor(drive_effort, dtype=v.dtype,
-                                     device=v.device)
-            p_term = torch.clamp(p_term, -effort, effort)
+            # A float limit stays a scalar argument (no host copy a step).
+            p_term = torch.clamp(p_term, -drive_effort, drive_effort)
         h_drv = dt if dt is not None else 0.0
         gain = kdT + h_drv * kpT
         rhs = rhs + p_term - gain * vT

@@ -64,8 +64,10 @@ def rot_to_quat(R):
         torch.stack([r10 - r01, r02 + r20, r12 + r21, qz2]),
     ])                                                    # (4, 4, ...)
     mags = torch.stack([qw2, qx2, qy2, qz2])              # (4, ...)
-    pick = torch.nn.functional.one_hot(torch.argmax(mags, 0), 4)
-    pick = torch.movedim(pick, -1, 0).to(R.dtype)         # (4, ...)
+    # One-hot by comparison (F.one_hot syncs with the host on the CPU).
+    arange4 = torch.arange(4, device=R.device).reshape(
+        (4,) + (1,) * (mags.ndim - 1))
+    pick = (torch.argmax(mags, 0, keepdim=True) == arange4).to(R.dtype)
     q = (cand * pick[:, None]).sum(0)                     # (4, ...)
     q = q / (torch.sqrt((q * q).sum(0, keepdim=True)) + 1e-12)
     return torch.where(q[0] < 0, -q, q)

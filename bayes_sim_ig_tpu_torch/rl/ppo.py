@@ -26,6 +26,7 @@ from ..parallel.mesh import gather_envs, global_num_envs, is_main_process
 from ..sim.task import env_step
 from ..utils.convert import (actor_critic_params_from_jax,
                              actor_critic_params_to_jax)
+from ..utils.step_graph import StepGraph, distr_key
 from . import networks
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -147,18 +148,27 @@ class PPO:
 
     def reinit(self, seed: int, logdir: Optional[str] = None, writer=None):
         """Fresh policy/optimizer/iteration counter (the ADR loop restarts
-        RL every iteration when ftuneRL is off)."""
+        RL every iteration when ftuneRL is off). The fresh weights and the
+        reseeded generator keep the tensors and the generator of the first
+        init: the captured steps (``utils/step_graph.py``) read them in
+        place."""
         init_gen = torch.Generator().manual_seed(int(seed) + 12345)
         # Every rank draws the same init from the same seed: the env axis
         # never splits the policy.
-        self.net = networks.ActorCritic(
+        net = networks.ActorCritic(
             init_gen, *self._net_spec, activation=self.activation,
             state_dim=self._state_dim).to(self.device)
+        if getattr(self, "net", None) is None:
+            self.net = net
+            self.gen = torch.Generator(device=self.device)
+        else:
+            with torch.no_grad():
+                for p, q in zip(self.net.parameters(), net.parameters()):
+                    p.copy_(q)
         self.params = list(self.net.parameters())
         self.adam = adam_init(self.params)
         self.lr = torch.tensor(self.init_lr, device=self.device)
-        self.gen = torch.Generator(device=self.device).manual_seed(
-            int(seed) + 12345)
+        self.gen.manual_seed(int(seed) + 12345)
         self.current_learning_iteration = 0
         if logdir is not None:
             self.logdir = logdir
@@ -191,25 +201,52 @@ class PPO:
     def rollout(self, distr, env_state, obs):
         """``nsteps`` steps of all envs under the current policy; returns
         (env_state, obs, traj, last_val) with traj a dict of (T, N, ...)
-        tensors (with "cin", the critic's inputs, when asymmetric)."""
-        keys = ["obs", "act", "logp", "val", "rew", "done"]
-        if self.asymmetric:
-            keys.append("cin")
-        steps = {k: [] for k in keys}
+        tensors (with "cin", the critic's inputs, when asymmetric). The
+        steps run the rollout's ``StepGraph`` (a CUDA graph replayed a
+        step on the card): actions drawn from this trainer's generator,
+        the env's draws from the env's."""
+        graph = self.rollout_graph(distr, env_state, obs)
+        graph.load(env_state, obs, distr)
         for _ in range(self.nsteps):
-            act, logp = networks.sample_action(self.net, obs, self.gen)
-            cin = self._critic_input(env_state, obs)
-            val = networks.value(self.net, cin)
-            env_state, obs2, rew, done = env_step(
-                self.task, distr, env_state, act, self.vec_env.gen)
-            for k, v in zip(keys, (obs, act, logp, val, rew, done.float(),
-                                   cin)):
-                steps[k].append(v)
-            obs = obs2
-        traj = {k: torch.stack(v) for k, v in steps.items()}
+            graph.step()
+        traj = {k: v.clone() for k, v in graph.traj.items()}
+        env_state, obs = graph.snapshot()
         last_val = networks.value(self.net,
                                   self._critic_input(env_state, obs))
         return env_state, obs, traj, last_val
+
+    def rollout_graph(self, distr, env_state, obs) -> StepGraph:
+        """The rollout's step on static buffers, cached on the env by what
+        it reads; ``env_state`` and ``obs`` give the buffers' shapes."""
+        env_gen = self.vec_env.gen
+        key = ("rollout", self.task.max_episode_length, self.net, self.gen,
+               env_gen, self.asymmetric, distr_key(distr))
+        graph = self.vec_env.step_graphs.get(key)
+        if graph is not None:
+            return graph
+
+        def body(state, obs, distr):
+            act, logp = networks.sample_action(self.net, obs, self.gen)
+            cin = self._critic_input(state, obs)
+            val = networks.value(self.net, cin)
+            state, obs2, rew, done = env_step(self.task, distr, state, act,
+                                              env_gen)
+            outs = {"obs": obs, "act": act, "logp": logp, "val": val,
+                    "rew": rew, "done": done.float()}
+            if self.asymmetric:
+                outs["cin"] = cin
+            return state, obs2, outs
+        n, f32 = self.task.num_envs, torch.float32
+        outputs = {"obs": ((n, self.task.obs_dim), f32),
+                   "act": ((n, self.task.act_dim), f32),
+                   "logp": ((n,), f32), "val": ((n,), f32),
+                   "rew": ((n,), f32), "done": ((n,), f32)}
+        if self.asymmetric:
+            outputs["cin"] = ((n, self._state_dim), f32)
+        graph = self.vec_env.step_graphs[key] = StepGraph(
+            "rollout", body, env_state, obs, distr, self.nsteps, outputs,
+            [self.gen, env_gen])
+        return graph
 
     def loss_fn(self, batch):
         """Clipped surrogate + clipped value loss - entropy bonus; returns

@@ -170,6 +170,12 @@ class Ant(Task):
         self._limits = torch.as_tensor(
             [m.limit_upper[i] for i in self._act_v_idx], dtype=torch.float32,
             device=self.device)
+        # The reset pose, and the mask that jitters only the 1-dof joints.
+        q0 = np.asarray(m.neutral_q(), np.float32)
+        q0[2] = START_Z
+        self._q0 = torch.as_tensor(q0, device=self.device)
+        self._q_jitter = torch.as_tensor(
+            (np.arange(m.nq) >= 7).astype(np.float32), device=self.device)
 
     # ------------------------------------------------------------------ #
     def _dyn_params(self, params) -> DynParams:
@@ -198,13 +204,9 @@ class Ant(Task):
         n = params.shape[0]
         m = self.model
         dev = params.device
-        q0 = torch.as_tensor(m.neutral_q(), dtype=torch.float32, device=dev)
-        q0[2] = START_Z
         dq = env_draw(torch.rand, (n, m.nq), gen, device=dev) * 0.16 - 0.08
         # Keep the base pose exact; jitter only the 1-dof joints.
-        mask = torch.zeros(m.nq, device=dev)
-        mask[7:] = 1.0
-        q = q0[None, :] + dq * mask[None, :]
+        q = self._q0[None, :] + dq * self._q_jitter[None, :]
         v = env_draw(torch.rand, (n, m.nv), gen, device=dev) * 0.1 - 0.05
         return AntState(q=q, v=v)
 

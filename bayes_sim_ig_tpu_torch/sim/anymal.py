@@ -153,6 +153,11 @@ class Anymal(Task):
         self._cmd_scale = torch.tensor(
             [self.lin_vel_scale, self.lin_vel_scale, self.ang_vel_scale],
             device=self.device)
+        # The reset pose, built once on the task's device.
+        self._q0 = torch.as_tensor(m.neutral_q(), dtype=torch.float32,
+                                   device=self.device)
+        self._q0[2] = BASE_Z
+        self._q0[self._act_q] = self._default_dof
 
     def _dyn_params(self, params) -> DynParams:
         """Every env's DynParams from its flat DR sample: (N, P) params ->
@@ -169,10 +174,7 @@ class Anymal(Task):
         n = params.shape[0]
         m = self.model
         dev = params.device
-        q0 = torch.as_tensor(m.neutral_q(), dtype=torch.float32, device=dev)
-        q0[2] = BASE_Z
-        q0[self._act_q] = self._default_dof
-        q = q0.expand(n, -1).clone()
+        q = self._q0.expand(n, -1).clone()
         jitter = env_draw(torch.rand, (n, 12), gen, device=dev) * 0.1 - 0.05
         q[:, self._act_q] += jitter
         v = torch.zeros((n, m.nv), device=dev)
@@ -191,10 +193,10 @@ class Anymal(Task):
         # Leg PD drives solved implicitly in forward_dynamics (PhysX drive
         # semantics): explicit tau-PD goes unstable on the light shank
         # axes under small-mass DR corners.
-        kp_dof = actions.new_zeros(n, m.nv)
-        kp_dof[:, self._act_v] = self.kp
-        kd_dof = actions.new_zeros(n, m.nv)
-        kd_dof[:, self._act_v] = self.kd
+        kp_dof = actions.new_zeros(n, m.nv).index_fill_(1, self._act_v,
+                                                        self.kp)
+        kd_dof = actions.new_zeros(n, m.nv).index_fill_(1, self._act_v,
+                                                        self.kd)
         tgt_dof = actions.new_zeros(n, m.nv)
         tgt_dof[:, self._act_v] = self._default_dof + a * self.action_scale
         zero_tau = actions.new_zeros(n, m.nv)

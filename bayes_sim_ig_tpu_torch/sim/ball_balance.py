@@ -148,6 +148,12 @@ class BallBalance(Task):
         self._fric_cols = idx(self._fric_dims)
         self._bq = m.q_off[self._ball_idx]
         self._bv = m.v_off[self._ball_idx]
+        bq = self._bq
+        # The reset pose, built once on the task's device.
+        self._q0 = torch.as_tensor(m.neutral_q(), dtype=torch.float32,
+                                   device=dev)
+        self._q0[2] = TRAY_H
+        self._q0[bq + 2] = TRAY_H + 0.02 + BALL_R
 
     # ------------------------------------------------------------------ #
     def _dyn_params(self, params) -> DynParams:
@@ -174,10 +180,7 @@ class BallBalance(Task):
         m = self.model
         dev = params.device
         bq, bv = self._bq, self._bv
-        q0 = torch.as_tensor(m.neutral_q(), dtype=torch.float32, device=dev)
-        q0[2] = TRAY_H
-        q0[bq + 2] = TRAY_H + 0.02 + BALL_R
-        q = q0.expand(n, -1).clone()
+        q = self._q0.expand(n, -1).clone()
         q[:, bq:bq + 2] = (env_draw(torch.rand, (n, 2), gen, device=dev)
                            * 0.3 - 0.15)
         v = torch.zeros((n, m.nv), device=dev)

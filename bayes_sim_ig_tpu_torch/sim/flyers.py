@@ -90,6 +90,10 @@ class _FlyerBase(Task):
         self._mass_cols = idx(self._mass_dims)
         self._stiff_cols = idx(self._stiff_dims)
         self._target = torch.tensor(self.target, device=self.device)
+        # The reset pose, built once on the task's device.
+        self._q0 = torch.as_tensor(m.neutral_q(), dtype=torch.float32,
+                                   device=self.device)
+        self._q0[2] = 1.0
 
     def _make_dyn_params(self, params) -> DynParams:
         """Every env's DynParams from its flat DR sample: (N, P) params ->
@@ -112,10 +116,8 @@ class _FlyerBase(Task):
         n = params.shape[0]
         m = self.model
         dev = params.device
-        q0 = torch.as_tensor(m.neutral_q(), dtype=torch.float32, device=dev)
-        q0[2] = 1.0
         pos_jitter = env_draw(torch.rand, (n, 3), gen, device=dev) * 0.4 - 0.2
-        q = q0.expand(n, -1).clone()
+        q = self._q0.expand(n, -1).clone()
         q[:, 0:3] += pos_jitter
         v = env_draw(torch.rand, (n, m.nv), gen, device=dev) * 0.2 - 0.1
         return FlyerState(q=q, v=v)
@@ -147,10 +149,10 @@ class _FlyerBase(Task):
         # rotor-arm links.
         drive = {}
         if targets is not None:
-            kp = actions.new_zeros(n, m.nv)
-            kp[:, self._dof_v] = self.kp
-            kd = actions.new_zeros(n, m.nv)
-            kd[:, self._dof_v] = self.kd
+            kp = actions.new_zeros(n, m.nv).index_fill_(1, self._dof_v,
+                                                        self.kp)
+            kd = actions.new_zeros(n, m.nv).index_fill_(1, self._dof_v,
+                                                        self.kd)
             tgt = actions.new_zeros(n, m.nv)
             tgt[:, self._dof_v] = targets
             drive = dict(drive_kp=kp, drive_kd=kd, drive_target=tgt)

@@ -175,6 +175,10 @@ class FrankaCabinet(Task):
         self._kp0 = f32([ARM_KP] * 7 + [FINGER_KP] * 2)
         self._kd0 = f32([ARM_KD] * 7 + [FINGER_KD] * 2)
         self._default_dof = f32(DEFAULT_DOF)
+        # The reset pose, built once on the task's device.
+        self._q0 = torch.as_tensor(m.neutral_q(), dtype=torch.float32,
+                                   device=dev)
+        self._q0[self._dof_q_t] = self._default_dof
         self._handle_local = f32(DRAWER_HANDLE_LOCAL)
         self._tip_local = f32(HAND_TIP_LOCAL)
 
@@ -204,9 +208,7 @@ class FrankaCabinet(Task):
         n = params.shape[0]
         m = self.model
         dev = params.device
-        q0 = torch.as_tensor(m.neutral_q(), dtype=torch.float32, device=dev)
-        q0[self._dof_q_t] = self._default_dof
-        q = q0.expand(n, -1).clone()
+        q = self._q0.expand(n, -1).clone()
         q[:, self._dof_q_t] += (env_draw(torch.rand, (n, 9), gen, device=dev)
                                 * 0.1 - 0.05)
         v = torch.zeros((n, m.nv), device=dev)

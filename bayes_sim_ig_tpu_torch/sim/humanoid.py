@@ -234,6 +234,10 @@ class Humanoid(Task):
         self._mass_cols = idx(self._mass_dims)
         self._stiff_cols = idx(self._stiff_dims)
         self._gears = torch.as_tensor(self._gears_np, device=self.device)
+        # The reset pose, built once on the task's device.
+        self._q0 = torch.as_tensor(m.neutral_q(), dtype=torch.float32,
+                                   device=self.device)
+        self._q0[2] = START_Z
 
     # ------------------------------------------------------------------ #
     def _dyn_params(self, params) -> DynParams:
@@ -261,10 +265,8 @@ class Humanoid(Task):
         n = params.shape[0]
         m = self.model
         dev = params.device
-        q0 = torch.as_tensor(m.neutral_q(), dtype=torch.float32, device=dev)
-        q0[2] = START_Z
         jitter = env_draw(torch.rand, (n, 21), gen, device=dev) * 0.1 - 0.05
-        q = q0.expand(n, -1).clone()
+        q = self._q0.expand(n, -1).clone()
         q[:, self._act_q] += jitter
         v = env_draw(torch.rand, (n, m.nv), gen, device=dev) * 0.1 - 0.05
         return HumanoidState(q=q, v=v)

@@ -266,12 +266,11 @@ class HandState(NamedTuple):
 def _random_quat(gen, n, device):
     """(n, 4) uniform random unit quaternions (w, x, y, z)."""
     u = env_draw(torch.rand, (n, 3), gen, device=device)
-    q = torch.stack([
-        torch.sqrt(1 - u[:, 0]) * torch.sin(2 * np.pi * u[:, 1]),
-        torch.sqrt(1 - u[:, 0]) * torch.cos(2 * np.pi * u[:, 1]),
-        torch.sqrt(u[:, 0]) * torch.sin(2 * np.pi * u[:, 2]),
-        torch.sqrt(u[:, 0]) * torch.cos(2 * np.pi * u[:, 2])], dim=1)
-    return q[:, [3, 0, 1, 2]]
+    x = torch.sqrt(1 - u[:, 0]) * torch.sin(2 * np.pi * u[:, 1])
+    y = torch.sqrt(1 - u[:, 0]) * torch.cos(2 * np.pi * u[:, 1])
+    z = torch.sqrt(u[:, 0]) * torch.sin(2 * np.pi * u[:, 2])
+    w = torch.sqrt(u[:, 0]) * torch.cos(2 * np.pi * u[:, 2])
+    return torch.stack([w, x, y, z], dim=1)
 
 
 class ShadowHand(Task):
@@ -511,6 +510,17 @@ class ShadowHand(Task):
             self._palm_fric_dim = \
                 self._hand_fric_dims[body_pos["robot0:palm"]]
         self._hand_links_t = idx(self._hand_links)
+        # The DR dims a step reads, as index tensors.
+        self._tendon_cols = idx(self._tendon_dims)
+        self._tendon_damp_cols = idx(self._tendon_damp_dims)
+        self._dof_damp_cols = idx(self._dof_damp_dims)
+        self._hand_mass_cols = idx(self._hand_mass_dims)
+        self._z_axis = f32([0.0, 0.0, 1.0])
+        self._quat_conj = f32([1.0, -1.0, -1.0, -1.0])
+        # The reset pose: the cube's orientation the identity quaternion.
+        self._q0 = torch.as_tensor(m.neutral_q(), dtype=torch.float32,
+                                   device=dev)
+        self._q0[self._cube_q + 3] = 1.0
         self._base = DynParams.defaults(m, device=dev)
         self._palm_anchor = f32([0.06, 0.0, PALM_Z])
         self._fall_anchor = f32([0.06, 0.0, PALM_Z + 0.05])
@@ -532,7 +542,7 @@ class ShadowHand(Task):
         n = params.shape[0]
         mass = base.mass.expand(n, -1).clone()
         if self._hand_mass_dims:
-            mass[:, self._hand_links_t] *= params[:, self._hand_mass_dims]
+            mass[:, self._hand_links_t] *= params[:, self._hand_mass_cols]
         if self._obj_mass_dim is not None:
             mass[:, self._cube] *= params[:, self._obj_mass_dim]
         inertia = base.inertia * (mass / base.mass)[:, :, None]
@@ -541,10 +551,9 @@ class ShadowHand(Task):
         fields = dict(mass=mass, inertia=inertia)
         if self._dof_damp_dims:
             damping = base.damping.expand(n, -1).clone()
-            damping[:, self._dof_v] *= params[:, self._dof_damp_dims]
+            damping[:, self._dof_v] *= params[:, self._dof_damp_cols]
             fields["damping"] = damping
-        gravity = base.gravity + gravity_dz[:, None] * torch.tensor(
-            [0.0, 0.0, 1.0], device=params.device)
+        gravity = base.gravity + gravity_dz[:, None] * self._z_axis
         return base.rows(n, gravity=gravity, **fields)
 
     def _contact_frictions(self, params):
@@ -568,15 +577,13 @@ class ShadowHand(Task):
         m = self.model
         dev = params.device
         cq = self._cube_q
-        q = torch.as_tensor(m.neutral_q(), dtype=torch.float32,
-                            device=dev).expand(n, -1).clone()
+        q = self._q0.expand(n, -1).clone()
         # Cube resting on the palm (its top near PALM_Z), scaled half-size.
         s = self._obj_scale(params)
         cube_xy = env_draw(torch.rand, (n, 2), gen, device=dev) * 0.02 - 0.01
         q[:, cq + 0] = 0.06 + cube_xy[:, 0]
         q[:, cq + 1] = cube_xy[:, 1]
         q[:, cq + 2] = PALM_Z + 0.012 + CUBE_HALF * s
-        q[:, cq + 3] = 1.0  # identity quaternion
         # Slightly randomized hand dofs.
         q[:, self._dof_q] += env_draw(torch.rand, (n, 24), gen,
                                       device=dev) * 0.2
@@ -602,10 +609,10 @@ class ShadowHand(Task):
                                                       - self._act_lo_t)
         s = self._obj_scale(params)                             # (N,)
         if self._tendon_dims:  # additive stiffness DR dims
-            tendon_k = 50.0 + params[:, self._tendon_dims]
+            tendon_k = 50.0 + params[:, self._tendon_cols]
         else:
             tendon_k = params.new_full((n_env, 4), 50.0)
-        tendon_d = (params[:, self._tendon_damp_dims]
+        tendon_d = (params[:, self._tendon_damp_cols]
                     if self._tendon_damp_dims else torch.ones_like(tendon_k))
         # Servo gains: stiff wrist drives hold the hand against gravity,
         # finger servos are position drives, all solved implicitly.
@@ -751,7 +758,7 @@ class ShadowHand(Task):
         return state.q[:, cq:cq + 3], state.q[:, cq + 3:cq + 7]
 
     def _quat_diff(self, qa, qb):
-        return quat_mul(qa, qb * qb.new_tensor([1.0, -1.0, -1.0, -1.0]))
+        return quat_mul(qa, qb * self._quat_conj)
 
     def observe(self, state, params):
         cv = self._cube_v

@@ -108,20 +108,22 @@ def _tree_select(mask, a, b):
 
 
 class EnvState(NamedTuple):
-    """The full mutable world state: tensors on the env's device, and the
-    global frame count (the noise schedules' clock) on the host."""
+    """The full mutable world state, every field a tensor on the env's
+    device: the global frame count (the noise schedules' clock) too, so
+    that a captured step advances it on the device."""
     task_state: Any           # task-specific tuple, leading dim N
     params: torch.Tensor      # (N, P) current per-env physics params
     progress: torch.Tensor    # (N,) int32 steps since episode start
     reset_buf: torch.Tensor   # (N,) int32; 1 on an episode's last step
-    frame_count: int          # global frames
+    frame_count: torch.Tensor  # () int32 global frames
     obs_corr: torch.Tensor    # (N, obs_dim) correlated-noise draw
     act_corr: torch.Tensor    # (N, act_dim) correlated-noise draw
 
 
 def env_full_reset(task: Task, distr: DeviceDistr, gen: torch.Generator,
-                   frame_count: int = 0):
-    """Resets and re-randomizes ALL envs. Returns (EnvState, obs)."""
+                   frame_count=0):
+    """Resets and re-randomizes ALL envs. Returns (EnvState, obs).
+    ``frame_count`` (an int or a () tensor) starts the frame counter."""
     n, dev = task.num_envs, task.device
     params = sample_distr(distr, gen, n)
     task_state = task.init_state(gen, params)
@@ -130,7 +132,8 @@ def env_full_reset(task: Task, distr: DeviceDistr, gen: torch.Generator,
         params=params,
         progress=torch.zeros(n, dtype=torch.int32, device=dev),
         reset_buf=torch.zeros(n, dtype=torch.int32, device=dev),
-        frame_count=int(frame_count),
+        frame_count=torch.as_tensor(frame_count, dtype=torch.int32,
+                                    device=dev).clone(),
         obs_corr=env_draw(torch.randn, (n, task.obs_dim), gen, device=dev),
         act_corr=env_draw(torch.randn, (n, task.act_dim), gen, device=dev))
     obs = torch.clamp(task.observe(state.task_state, state.params),
@@ -239,7 +242,9 @@ class ParamsGeneratorFacade:
 class VecEnv:
     """Stateful wrapper over the env functions, exposing the surface the
     reference code uses (``reset()``, ``step(act)``). Its generator drives
-    the env's own draws."""
+    the env's own draws. ``step_graphs`` holds the captured steps of its
+    collection rounds and PPO rollouts (``utils/step_graph.py``), keyed by
+    what each reads; ``free_step_graphs`` releases them."""
 
     def __init__(self, task: Task, seed: int = 0):
         self.task = task
@@ -248,8 +253,15 @@ class VecEnv:
         self.gen = torch.Generator(device=self.device).manual_seed(int(seed))
         self.state: Optional[EnvState] = None
         self.max_episode_length = task.max_episode_length
+        self.step_graphs: dict = {}
         task.actor_params_generator = ParamsGeneratorFacade(
             task.params_spec, self)
+
+    def free_step_graphs(self):
+        """Drops every captured step, with its graph's memory pool."""
+        self.step_graphs.clear()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
 
     def set_distr(self, device_distr: DeviceDistr):
         """Sets the params sampling distribution."""

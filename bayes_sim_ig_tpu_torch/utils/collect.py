@@ -25,6 +25,7 @@ import torch
 
 from ..parallel.mesh import env_draw, gather_envs, global_num_envs
 from ..sim.task import env_full_reset, env_step
+from .step_graph import StepGraph, distr_key
 
 
 # --------------------------------------------------------------------- #
@@ -53,14 +54,14 @@ def policy_rl_randomized(act, gen, frac_rnd=0.1):
     return torch.where(rnd < frac_rnd, random_act, act)
 
 
-def policy_grasp(act, gen, excitation_dims):
+def policy_grasp(act, gen, excitation):
     """Drives the task-declared excitation dims to max while the other
-    dims jitter around neutral (see the JAX package's policy_grasp)."""
-    base = torch.zeros_like(act)
-    base[..., list(excitation_dims)] = 1.0
+    dims jitter around neutral (see the JAX package's policy_grasp).
+    ``excitation`` is the (act_dim,) float mask of those dims, 1 on them
+    and 0 elsewhere, on the actions' device."""
     jitter = env_draw(torch.rand, act.shape, gen, dtype=act.dtype,
                       device=act.device) * 0.6 - 0.3
-    return torch.clamp(base + jitter, -1.0, 1.0)
+    return torch.clamp(excitation + jitter, -1.0, 1.0)
 
 
 _POLICY_REGISTRY = {
@@ -89,7 +90,10 @@ def get_collect_policy(name: Optional[str], task=None):
                 "grasp_excitation_dims; falling back to policy_ones "
                 "semantics (the reference's squeeze excitation).")
             return policy_ones
-        return lambda act, gen: policy_grasp(act, gen, tuple(dims))
+        # The mask is built once: a step indexes no host list.
+        excitation = torch.zeros(task.act_dim, device=task.device)
+        excitation[list(dims)] = 1.0
+        return lambda act, gen: policy_grasp(act, gen, excitation)
     return _POLICY_REGISTRY[name]
 
 
@@ -115,30 +119,58 @@ def _postprocess_round(obs0, obs_seq, act_seq, rew_seq, done_seq, labels):
             acts.transpose(0, 1).contiguous(), rewards)
 
 
+def collect_step_graph(vec_env, policy_apply, collect_policy,
+                       max_episode_length, policy_params, distr, gen,
+                       env_state, obs, steps=None) -> StepGraph:
+    """The collection step (policy, collection policy, ``env_step``) on
+    static buffers, cached on ``vec_env`` by what it reads; its trajectory
+    buffers hold ``steps`` steps (default ``max_episode_length - 1``, a
+    round). ``env_state`` and ``obs`` give the buffers' shapes."""
+    steps = max_episode_length - 1 if steps is None else steps
+    key = ("collect", max_episode_length, steps, policy_apply,
+           collect_policy, policy_params, gen, distr_key(distr))
+    graph = vec_env.step_graphs.get(key)
+    if graph is not None:
+        return graph
+    task = vec_env.task
+
+    def body(state, obs, distr):
+        act = collect_policy(policy_apply(policy_params, obs, gen), gen)
+        state, obs, rew, done = env_step(task, distr, state, act, gen,
+                                         max_episode_length)
+        return state, obs, {"obs": obs, "act": act, "rew": rew,
+                            "done": done}
+    n = task.num_envs
+    graph = vec_env.step_graphs[key] = StepGraph(
+        "collect", body, env_state, obs, distr, steps,
+        {"obs": ((n, task.obs_dim), torch.float32),
+         "act": ((n, task.act_dim), torch.float32),
+         "rew": ((n,), torch.float32), "done": ((n,), torch.int32)},
+        [gen])
+    return graph
+
+
 @torch.no_grad()
-def _collect_round(task, policy_apply, collect_policy, max_episode_length,
+def _collect_round(vec_env, policy_apply, collect_policy, max_episode_length,
                    policy_params, distr, gen):
     """One synchronized round; returns padded episodes for every env.
 
     policy_apply: (policy_params, obs, gen) -> action (the RL policy).
     collect_policy: (act, gen) -> act transform.
+    The reset runs eagerly; the ``max_episode_length - 1`` steps run the
+    round's ``StepGraph`` (on the card, a CUDA graph replayed a step).
     """
-    env_state, obs0 = env_full_reset(task, distr, gen)
+    env_state, obs0 = env_full_reset(vec_env.task, distr, gen)
     labels = env_state.params  # ground-truth params for this round
-    obs = obs0
-    obs_seq, act_seq, rew_seq, done_seq = [], [], [], []
+    graph = collect_step_graph(vec_env, policy_apply, collect_policy,
+                               max_episode_length, policy_params, distr,
+                               gen, env_state, obs0)
+    graph.load(env_state, obs0, distr)
     for _ in range(max_episode_length - 1):
-        act = policy_apply(policy_params, obs, gen)
-        act = collect_policy(act, gen)
-        env_state, obs, rew, done = env_step(task, distr, env_state, act,
-                                             gen, max_episode_length)
-        obs_seq.append(obs)
-        act_seq.append(act)
-        rew_seq.append(rew)
-        done_seq.append(done)
-    return _postprocess_round(obs0, torch.stack(obs_seq),
-                              torch.stack(act_seq), torch.stack(rew_seq),
-                              torch.stack(done_seq), labels)
+        graph.step()
+    tr = graph.traj
+    return _postprocess_round(obs0, tr["obs"], tr["act"], tr["rew"],
+                              tr["done"], labels)
 
 
 def collect_trajectories(
@@ -172,7 +204,7 @@ def collect_trajectories(
     for r in range(n_rounds):
         # This rank's envs, all-gathered into the round of every env.
         rounds.append(gather_envs(_collect_round(
-            task, ppo.policy_apply, collect_policy, max_episode_length,
+            vec_env, ppo.policy_apply, collect_policy, max_episode_length,
             ppo.net, distr, gen)))
         if verbose:
             done = min((r + 1) * num_envs, num_trajs)

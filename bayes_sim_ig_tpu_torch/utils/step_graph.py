@@ -1,0 +1,177 @@
+"""One env step captured as a CUDA graph and replayed for every step of a
+collection round or a PPO rollout.
+
+The JAX package runs each of those loops as one jitted ``lax.scan``
+(``utils/collect.py::_collect_round``; the rollout of
+``rl/ppo.py::_build_train_iteration``). An eager torch step is 1,300-2,400
+small launches, and the host, not the card, then sets its pace. Here the
+loop's body (the policy, the collection policy and ``env_step``) works on
+static buffers: the env state, the observations, the sampling
+distribution, and (T, N, ...) trajectory buffers written at a step
+counter that lives on the device. On a CUDA device the first step of a
+``StepGraph`` runs the body eagerly on a side stream (it builds the
+per-model tables and loads every kernel), then captures it into a
+``torch.cuda.CUDAGraph``; every later step is one replay. On the CPU the
+body runs eagerly at every step. The device alone picks the path: there
+is no switch, and a capture that fails raises.
+
+What a graph reads must stay where it was captured:
+  * the random generators are registered with the graph, so that a replay
+    draws what the eager body draws and leaves each generator where the
+    eager step leaves it;
+  * the policy's weights are read in place (``PPO`` writes them with
+    ``copy_``, and ``PPO.reinit`` writes fresh ones into the same
+    tensors);
+  * a round's first state and its distribution's values are copied into
+    the buffers (``load``), so a graph is keyed on the distribution's
+    kind and shapes (``distr_key``), not on its values.
+Each kernel wrapper counts its launches on the host. A capture's counts
+are put back and added again at every replay, so the counts stay those
+of the launches the card ran.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, Sequence, Tuple
+
+import torch
+
+from ..ops.launch import launch_counts, set_launch_counts
+
+# Captures, replays and capture seconds of this process, by phase
+# ("collect", "rollout"); read and reset by callers that must show a run
+# went through the graphs.
+STATS: Dict[str, Dict[str, float]] = {}
+
+
+def _leaves(tree) -> list:
+    """The tensors of nested (named) tuples, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [x for sub in tree for x in _leaves(sub)]
+
+
+def _clone(tree):
+    """A copy of nested named tuples of tensors."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    return type(tree)(*[_clone(x) for x in tree])
+
+
+def distr_key(distr) -> tuple:
+    """A sampling distribution's kind and shapes: what a graph that reads
+    its values from buffers depends on."""
+    return (type(distr).__name__,) + tuple(tuple(x.shape) for x in distr)
+
+
+class StepGraph:
+    """The step ``body(state, obs, distr) -> (state, obs, outputs)`` of
+    ``phase`` (counted in ``STATS``) on static buffers: ``state`` an
+    ``EnvState``, ``obs`` the observations, ``distr`` a device
+    distribution, and ``outputs`` a {name: tensor} dict of the step's
+    trajectory entries, whose (shape, dtype) ``outputs`` gives here.
+    ``steps`` is the trajectory buffers' length; ``generators`` every
+    generator the body draws from."""
+
+    def __init__(self, phase: str, body: Callable, state, obs: torch.Tensor,
+                 distr, steps: int,
+                 outputs: Dict[str, Tuple[tuple, torch.dtype]],
+                 generators: Sequence[torch.Generator]):
+        self.device = obs.device
+        self._stats = STATS.setdefault(
+            phase, {"captures": 0, "replays": 0, "capture_s": 0.0})
+        self._body = body
+        self.state = _clone(state)
+        self.obs = obs.clone()
+        self.distr = _clone(distr)
+        self.steps = int(steps)
+        self.traj = {k: torch.empty((self.steps,) + tuple(shape),
+                                    dtype=dtype, device=self.device)
+                     for k, (shape, dtype) in outputs.items()}
+        self._t = torch.zeros(1, dtype=torch.int64, device=self.device)
+        self._host_t = 0
+        self._generators = list(generators)
+        self._graph = None
+        self._launches = None
+        self.replays = 0
+        self.capture_s = None
+
+    def load(self, state, obs: torch.Tensor, distr):
+        """Copies a round's first state, its observations and the
+        distribution's values into the buffers; the trajectory starts
+        again at step 0."""
+        for dst, src in zip(_leaves((self.state, self.obs, self.distr)),
+                            _leaves((state, obs, distr))):
+            dst.copy_(src)
+        self._t.zero_()
+        self._host_t = 0
+
+    def snapshot(self):
+        """(EnvState, obs): copies of the state and observation buffers,
+        which the next step overwrites."""
+        return _clone(self.state), self.obs.clone()
+
+    def _run(self):
+        with torch.no_grad():
+            state, obs, outs = self._body(self.state, self.obs, self.distr)
+            for k, v in outs.items():
+                self.traj[k].index_copy_(0, self._t, v.unsqueeze(0))
+            for dst, src in zip(_leaves((self.state, self.obs)),
+                                _leaves((state, obs))):
+                dst.copy_(src)
+            self._t.add_(1)
+
+    def _advance(self):
+        if self._host_t >= self.steps:
+            raise IndexError(f"step {self._host_t} of a trajectory of "
+                             f"{self.steps}: load the next round first")
+        self._host_t += 1
+
+    def body(self):
+        """One step, eagerly, on the buffers."""
+        self._advance()
+        self._run()
+
+    def step(self):
+        """One step: a replay of the captured step on a CUDA device (the
+        first step captures it), the body on the CPU."""
+        if self.device.type != "cuda":
+            self.body()
+            return
+        if self._graph is None:
+            self._capture()
+            return
+        self._advance()
+        self._graph.replay()
+        counts = launch_counts()
+        set_launch_counts({k: c + self._launches[k]
+                           for k, c in counts.items()})
+        self.replays += 1
+        self._stats["replays"] += 1
+
+    def _capture(self):
+        """Runs this step eagerly on a side stream, then captures the body
+        on that stream (no kernel runs in a capture), with every generator
+        registered."""
+        self._advance()
+        with torch.cuda.device(self.device):
+            current, side = torch.cuda.current_stream(), torch.cuda.Stream()
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                self._run()
+            current.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            for gen in self._generators:
+                graph.register_generator_state(gen)
+            before = launch_counts()
+            t0 = time.perf_counter()
+            with torch.cuda.graph(graph, stream=side):
+                self._run()
+            self.capture_s = time.perf_counter() - t0
+            after = launch_counts()
+        set_launch_counts(before)
+        self._launches = {k: after[k] - before[k] for k in after}
+        self._graph = graph
+        self._stats["captures"] += 1
+        self._stats["capture_s"] += self.capture_s

@@ -59,7 +59,18 @@ Phases (each prints its lines; any failure raises and exits non-zero):
        their times against the plain versions, the bound and the
        one-call yardstick solve_triangular(unitriangular) on L made
        dense;
-  4. the ADR loop on Ant at full width (1024 envs, 17 params,
+  4. the step graphs (utils/step_graph.py): each of the ten tasks at the
+     full width of its ADR phase (below; Cartpole 512, Pendulum 100
+     envs) runs 20 collection steps (its config's collection policy, the
+     prior) and one PPO rollout of nsteps (a 10-component posterior;
+     ShadowHand's with the asymmetric critic) as CUDA graph replays
+     and as the eager body from the same state and generators: every
+     trajectory entry, state leaf, observation and generator state bit
+     for bit equal, the replays' kernel launches equal the body's, one
+     eager step under sync debug mode "error" (no host sync, no
+     host-to-device copy); prints the wall ms per step graphed and
+     eager, the graphed step's device ms and the capture seconds;
+  4b. the ADR loop on Ant at full width (1024 envs, 17 params,
      trainTrajLen 50, summary_corrdiff, MDNN [128, 128] x 10 components,
      PPO [256, 128, 64] with nsteps 16) for 2 ADR iterations through
      ``bayes_sim_main.main`` (ADR_PHASES); checks that the SPD factor and
@@ -105,12 +116,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      a free local port), an all_gather and a broadcast of a CUDA tensor
      checked for values, and setup_parallelism(512), which must leave a
      single device and no mesh; the group is destroyed after.
-Each ADR phase sets every kernel's launch count to 0 just before it runs
-and reads the counts just after. The line before the card's line is a
-JSON object with each kernel's numbers, its bound (ops/bounds.py: the
-larger of its bytes over 3.35 TB/s and its FLOPs over 67 TFLOP/s) and
-its library yardstick's time; the line before that the script's total
-seconds; the last line is ``{"ok": true, "device": {...}}``.
+Each ADR phase runs its collection rounds and PPO rollouts as CUDA
+graphs of one step (utils/step_graph.py) and checks that it replayed
+them; the env step profiles (Anymal, ShadowHand, the full_state probe)
+time the step eager and as a graph. Each ADR phase sets every kernel's
+launch count to 0 just before it runs and reads the counts just after
+(a graph replay adds the launches its capture counted). The line before
+the card's line is a JSON object with each kernel's numbers, its bound
+(ops/bounds.py: the larger of its bytes over 3.35 TB/s and its FLOPs
+over 67 TFLOP/s) and its library yardstick's time; the line before that
+the script's total seconds; the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -940,18 +956,15 @@ def _on_cuda(tensors, what):
 
 
 def _reset_launches():
-    from bayes_sim_ig_tpu_torch.ops import rff_kernel, spd_kernel, tree_solve
-    rff_kernel.LAUNCHES = 0
-    for counts in (spd_kernel.LAUNCHES, tree_solve.LAUNCHES):
-        for entry in counts:
-            counts[entry] = 0
+    from bayes_sim_ig_tpu_torch.ops.launch import (
+        launch_counts, set_launch_counts,
+    )
+    set_launch_counts({k: 0 for k in launch_counts()})
 
 
 def _read_launches():
-    from bayes_sim_ig_tpu_torch.ops import rff_kernel, spd_kernel, tree_solve
-    return {"rff_features": rff_kernel.LAUNCHES,
-            **{f"spd_{e}_lanes": c for e, c in spd_kernel.LAUNCHES.items()},
-            **{f"tree_ltdl_{e}": c for e, c in tree_solve.LAUNCHES.items()}}
+    from bayes_sim_ig_tpu_torch.ops.launch import launch_counts
+    return launch_counts()
 
 
 class _PhaseTimer:
@@ -991,7 +1004,12 @@ class _PhaseTimer:
             setattr(owner, attr, fn)
 
     def line(self):
-        return ", ".join(f"{k} {v:.2f} s" for k, v in self.secs.items())
+        graphs = "; ".join(
+            f"{k} graphs {v['captures']} captured in {v['capture_s']:.2f} "
+            f"s, {v['replays']} replays"
+            for k, v in getattr(self, "graphs", {}).items())
+        return (", ".join(f"{k} {v:.2f} s" for k, v in self.secs.items())
+                + (f"; {graphs}" if graphs else ""))
 
 
 def _run_adr(task, cfg, name, iters=2):
@@ -1008,6 +1026,8 @@ def _run_adr(task, cfg, name, iters=2):
     # The loop's own printing (configs, posteriors) goes to a log file, so
     # that this script's summary lines stay short.
     log_path = os.path.join(run_dir, "loop.log")
+    from bayes_sim_ig_tpu_torch.utils import step_graph
+    step_graph.STATS.clear()
     _reset_launches()
     t0 = time.perf_counter()
     with open(log_path, "w") as log, contextlib.redirect_stdout(log), \
@@ -1016,6 +1036,14 @@ def _run_adr(task, cfg, name, iters=2):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = _read_launches()
+    # The collection rounds and the PPO rollouts ran as graph replays.
+    for phase in ("collect", "rollout"):
+        if step_graph.STATS.get(phase, {}).get("replays", 0) <= 0:
+            raise AssertionError(f"{name}: no {phase} step was replayed "
+                                 f"from a CUDA graph")
+    timer.graphs = {k: dict(v) for k, v in step_graph.STATS.items()}
+    if out["env"].step_graphs:
+        raise AssertionError(f"{name}: the ADR loop kept its graphs")
     _on_cuda(list(out["bsim"].model.net.parameters()), "BayesSim model")
     # The refit combines the posteriors of the surrogate-real trajectories
     # accumulated over iterations: the first iteration has one.
@@ -1093,10 +1121,13 @@ def phase_adr_pendulum():
 
 
 def _env_step_profile(env, steps=20, act=None):
-    """One env step at the phase's width (zero actions unless ``act``):
-    wall ms per step (host clock, synchronized), device ms per step
-    (torch.profiler, the largest of three traces) and the device's busy
-    share of the wall."""
+    """One env step at the phase's width (zero actions unless ``act``),
+    eager (``VecEnv.step``) and as a CUDA graph of env_step alone
+    (``StepGraph``): wall ms per step (host clock, synchronized), device
+    ms per step (torch.profiler, the largest of three traces), device
+    operations per step and the device's busy share of the wall."""
+    from bayes_sim_ig_tpu_torch.sim.task import env_step
+    from bayes_sim_ig_tpu_torch.utils.step_graph import StepGraph
     if act is None:
         act = torch.zeros(env.num_envs, env.task.act_dim, device="cuda:0")
     for _ in range(3):
@@ -1108,8 +1139,244 @@ def _env_step_profile(env, steps=20, act=None):
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / steps
     dev, kernels = _device_profile(lambda: env.step(act), n=steps)
+
+    def body(state, obs, distr):
+        state, obs, _, _ = env_step(env.task, distr, state, act, env.gen)
+        return state, obs, {}
+    obs = torch.zeros(env.num_envs, env.task.obs_dim, device="cuda:0")
+    graph = StepGraph("probe", body, env.state, obs, env._distr,
+                      5 + 4 * steps, {}, [env.gen])
+    graph.load(env.state, obs, env._distr)
+    for _ in range(4):  # the first captures
+        graph.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        graph.step()
+    torch.cuda.synchronize()
+    g_wall = (time.perf_counter() - t0) * 1e3 / steps
+    g_dev, g_kernels = _device_profile(graph.step, n=steps)
     return {"wall_ms": wall, "dev_ms": dev, "kernels": kernels,
-            "busy": None if dev is None else dev / wall}
+            "busy": None if dev is None else dev / wall,
+            "graph_wall_ms": g_wall, "graph_dev_ms": g_dev,
+            "graph_kernels": g_kernels, "capture_s": graph.capture_s,
+            "graph_busy": None if g_dev is None else g_dev / g_wall}
+
+
+def _step_line(step):
+    """The env step's numbers, eager and graphed."""
+    def busy(b):
+        return "not measured" if b is None else f"{b:.3f}"
+    return (f"env step eager {step['wall_ms']:.2f} ms wall, device "
+            f"{_fmt(step['dev_ms'])} (busy share {busy(step['busy'])}), "
+            f"{step['kernels']} device operations a step; graphed "
+            f"{step['graph_wall_ms']:.3f} ms wall, device "
+            f"{_fmt(step['graph_dev_ms'])} (busy share "
+            f"{busy(step['graph_busy'])}), {step['graph_kernels']} device "
+            f"operations a step, captured in {step['capture_s']:.3f} s")
+
+
+# ------------------------------------------------------------------ #
+# The step graphs against their eager bodies
+# ------------------------------------------------------------------ #
+def _state_leaves(state):
+    """(name, tensor) of every EnvState field, task-state leaves named."""
+    return ([(f"task_state.{k}", v)
+             for k, v in state.task_state._asdict().items()]
+            + [(k, v) for k, v in state._asdict().items()
+               if k != "task_state"])
+
+
+def _bits(x):
+    """A tensor's bit pattern: float32 NaNs of one payload compare equal."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _graph_vs_eager(g, load, gens, n):
+    """n replays of StepGraph ``g`` against n calls of its eager body,
+    each from ``load()`` and the generators' states at entry (a new graph
+    is captured first). Returns ({name: (max abs, max relative deviation)}
+    of every trajectory entry, state leaf, observation or generator state
+    that is not bit for bit equal, graph launches, eager launches)."""
+    starts = [gen.get_state() for gen in gens]
+    if g.capture_s is None:
+        load()
+        g.step()
+
+    def run(step):
+        for gen, st in zip(gens, starts):
+            gen.set_state(st)
+        load()
+        before = _read_launches()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        after = _read_launches()
+        got = {f"traj.{k}": v[:n].clone() for k, v in g.traj.items()}
+        got.update({name: v.clone() for name, v in _state_leaves(g.state)})
+        got["obs"] = g.obs.clone()
+        got.update({f"generator {i}": gen.get_state()
+                    for i, gen in enumerate(gens)})
+        return got, {k: after[k] - before[k] for k in after
+                     if after[k] != before[k]}
+
+    (graph, g_launches), (eager, e_launches) = run(g.step), run(g.body)
+    diffs = {}
+    for name, a in graph.items():
+        b = eager[name]
+        if a.dtype != b.dtype or not torch.equal(_bits(a), _bits(b)):
+            d = (a.double() - b.double()).abs().nan_to_num(nan=float("inf"))
+            rel = d / b.double().abs().clamp(min=1e-30)
+            diffs[name] = (float(d.max()), float(rel.max()))
+    return diffs, g_launches, e_launches
+
+
+def _timed_steps(g, load, n, body=False):
+    """Wall ms per step of n steps after 3 (replays, or eager bodies)."""
+    step = g.body if body else g.step
+    load()
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def _no_sync_step(g, load):
+    """One eager body under torch.cuda.set_sync_debug_mode("error"): a host
+    sync or a host-to-device copy in the step raises."""
+    load()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g.body()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _posterior(spec, k=10, seed=0):
+    """A k-component mixture inside the param box (the ADR posterior's
+    kind, drawn through torch.multinomial) on the card."""
+    from bayes_sim_ig_tpu_torch.distributions import MoG, to_device_distr
+    lo, hi = np.asarray(spec.lows), np.asarray(spec.highs)
+    rs = np.random.RandomState(seed)
+    ms = [lo + (hi - lo) * rs.uniform(0.2, 0.8, lo.shape) for _ in range(k)]
+    Ss = [np.diag(((hi - lo) * 0.05) ** 2 + 1e-12) for _ in range(k)]
+    w = rs.uniform(0.5, 1.0, k)
+    return to_device_distr(MoG(a=w / w.sum(), ms=ms, Ss=Ss), lo, hi,
+                           device="cuda:0")
+
+
+GRAPH_STEPS = 20  # collection steps compared
+
+
+def phase_step_graphs():
+    """``step_graph_check`` for each of GRAPH_TASKS."""
+    return {spec[0]: step_graph_check(*spec) for spec in GRAPH_TASKS}
+
+
+def step_graph_check(task_name, stem, envs, edits):
+    """One task at the full width of its ADR phase: the collection step
+    (its config's collection policy, the prior, episodes of trainTrajLen
+    + 1) for 20 steps and one PPO rollout of nsteps (a 10-component
+    posterior) as graph replays and as the eager body from the same state
+    and generators, held equal bit for bit (trajectory, state leaves,
+    observations, generators) with equal kernel launches; one eager step
+    under sync debug mode "error"; wall ms per step graphed and eager, the
+    graphed step's device ms and its capture seconds."""
+    from bayes_sim_ig_tpu_torch.distributions import Uniform, to_device_distr
+    from bayes_sim_ig_tpu_torch.rl.ppo import process_ppo
+    from bayes_sim_ig_tpu_torch.sim import make_env
+    from bayes_sim_ig_tpu_torch.sim.task import env_full_reset
+    from bayes_sim_ig_tpu_torch.utils.args import load_config
+    from bayes_sim_ig_tpu_torch.utils.collect import (
+        collect_step_graph, get_collect_policy,
+    )
+    cfg_dir = os.path.join(HERE, "bayes_sim_ig_tpu_torch", "cfg")
+    t_task = time.perf_counter()
+    cfg = load_config(os.path.join(cfg_dir, f"{stem}.yaml"))
+    cfg["env"].update(edits)
+    assert cfg["env"]["numEnvs"] == envs
+    cfg_train = load_config(os.path.join(cfg_dir, "train",
+                                         f"ppo_{stem}.yaml"))
+    env = make_env(task_name, cfg, seed=0, device="cuda:0")
+    ppo = process_ppo(env, cfg_train,
+                      logdir=os.path.join(RUN_DIR, "graphs", stem),
+                      seed=0)
+    task, spec = env.task, env.task.params_spec
+    cpol_name = cfg["bayessim"]["collectPolicy"]
+    cpol = get_collect_policy(cpol_name, task)
+    prior = to_device_distr(Uniform(spec.lows, spec.highs),
+                            device="cuda:0")
+    mel = cfg["bayessim"]["trainTrajLen"] + 1
+    st0, obs0 = env_full_reset(task, prior, ppo.gen)
+    cg = collect_step_graph(env, ppo.policy_apply, cpol, mel, ppo.net,
+                            prior, ppo.gen, st0, obs0, steps=100)
+
+    def cload():
+        cg.load(st0, obs0, prior)
+    c_diffs, c_graph, c_eager = _graph_vs_eager(cg, cload, [ppo.gen],
+                                                GRAPH_STEPS)
+    _no_sync_step(cg, cload)
+    c_wall = _timed_steps(cg, cload, GRAPH_STEPS)
+    c_eager_wall = _timed_steps(cg, cload, GRAPH_STEPS, body=True)
+    cload()
+    c_dev, c_ops = _device_profile(cg.step, n=GRAPH_STEPS)
+
+    post = _posterior(spec)
+    env.set_distr(post)
+    obs_r = env.reset()
+    st_r = env.state
+    ppo.rollout(post, st_r, obs_r)  # the API's first call captures
+    rg = ppo.rollout_graph(post, st_r, obs_r)
+
+    def rload():
+        rg.load(st_r, obs_r, post)
+    r_diffs, r_graph, r_eager = _graph_vs_eager(
+        rg, rload, [ppo.gen, env.gen], ppo.nsteps)
+    _no_sync_step(rg, rload)
+    r_wall = _timed_steps(rg, rload, ppo.nsteps - 3)
+    r_eager_wall = _timed_steps(rg, rload, ppo.nsteps - 3, body=True)
+    diffs = {**{f"collect {k}": v for k, v in c_diffs.items()},
+             **{f"rollout {k}": v for k, v in r_diffs.items()}}
+    if diffs:
+        raise AssertionError(
+            f"{task_name}: graph and eager differ in "
+            + "; ".join(f"{k} (max abs {a:.3g}, max rel {r:.3g})"
+                        for k, (a, r) in diffs.items()))
+    for what, gl, el in (("collect", c_graph, c_eager),
+                         ("rollout", r_graph, r_eager)):
+        if gl != el:
+            raise AssertionError(f"{task_name} {what}: launches of the "
+                                 f"replays {gl} != eager {el}")
+    n_leaves = len(_state_leaves(cg.state))
+    record = {
+        "envs": envs, "collect_wall_ms": c_wall,
+        "collect_eager_wall_ms": c_eager_wall, "collect_dev_ms": c_dev,
+        "collect_ops": c_ops, "collect_capture_s": cg.capture_s,
+        "rollout_wall_ms": r_wall, "rollout_eager_wall_ms": r_eager_wall,
+        "rollout_capture_s": rg.capture_s,
+        "launches_per_step": {k: v / GRAPH_STEPS
+                              for k, v in c_graph.items()}}
+    busy = "not measured" if c_dev is None else f"{c_dev / c_wall:.3f}"
+    print(f"[graphs] {task_name} {envs} envs: collection ({cpol_name}, "
+          f"prior, episodes of {mel}) {GRAPH_STEPS} replays and rollout "
+          f"({ppo.nsteps} steps, 10-component posterior"
+          f"{', asymmetric' if ppo.asymmetric else ''}) "
+          f"equal their eager bodies bit for bit (trajectory, "
+          f"{n_leaves} state leaves, obs, generators); launches of "
+          f"{GRAPH_STEPS} replays {c_graph or 'none'} == eager; no "
+          f"host sync in a step; collection step graphed "
+          f"{c_wall:.3f} ms wall against eager {c_eager_wall:.2f} ms, "
+          f"device {_fmt(c_dev)} ({c_ops} device operations, busy "
+          f"share {busy}), captured in {cg.capture_s:.3f} s; rollout "
+          f"step {r_wall:.3f} ms against {r_eager_wall:.2f} ms, "
+          f"captured in {rg.capture_s:.3f} s; "
+          f"{time.perf_counter() - t_task:.1f} s", flush=True)
+    env.free_step_graphs()
+    return record
 
 
 # The ADR phases of the articulated tasks: (task, config stem, numEnvs, DR
@@ -1148,6 +1415,16 @@ ADR_PHASES = [
 ]
 # The phases whose env step is profiled after the loop.
 STEP_PROFILED = ("Anymal", "ShadowHand")
+
+# The tasks of the step-graph phase: (task, config stem, numEnvs, env
+# edits), the ADR phases' widths and cuts. ShadowHand runs with the
+# asymmetric critic (no shipped config sets it), so that its privileged
+# inputs are captured too.
+GRAPH_TASKS = [("Cartpole", "cartpole", 512, {}),
+               ("Pendulum", "pendulum", 100, {})] + [
+    (t, stem, envs, dict(edits, **({"asymmetric_observations": True}
+                                   if t == "ShadowHand" else {})))
+    for t, stem, envs, *_x, edits, _it in ADR_PHASES]
 
 
 def phase_adr(task, stem, envs, dim, widths, nsteps, traj_len, summarizer,
@@ -1195,10 +1472,7 @@ def phase_adr(task, stem, envs, dim, widths, nsteps, traj_len, summarizer,
           f"{', '.join(f'{s:.2f}' for s in out['iter_secs'])} s; phases: "
           f"{timer.line()}); launches {launches}; {dim}-dim posteriors "
           f"finite; model, refit, policy and env tensors on cuda"
-          + ("" if step is None else
-             f"; env step {step['wall_ms']:.2f} ms wall, device "
-             f"{_fmt(step['dev_ms'])} (busy share {step['busy']:.3f}), "
-             f"{step['kernels']} device operations a step"),
+          + ("" if step is None else f"; {_step_line(step)}"),
           flush=True)
     return launches
 
@@ -1242,10 +1516,8 @@ def phase_grasp_full_probe(steps=20):
           f"envs, {steps} steps of policy_grasp: obs (2048, 211), force "
           f"|max| {float(st.tip_force.abs().max()):.3f}, torque |max| "
           f"{float(st.tip_torque.abs().max()):.4f}, dof force |max| "
-          f"{float(st.dof_force.abs().max()):.3f}, all finite; env step "
-          f"{step['wall_ms']:.2f} ms wall, device {_fmt(step['dev_ms'])} "
-          f"(busy share {step['busy']:.3f}), {step['kernels']} device "
-          f"operations a step", flush=True)
+          f"{float(st.dof_force.abs().max()):.3f}, all finite; "
+          f"{_step_line(step)}", flush=True)
 
 
 def _level_check(name, got, want, d, depth):
@@ -1409,6 +1681,7 @@ def main():
     spd = phase_spd_kernel()
     tree = phase_tree_kernel()
     half = phase_half_solves()
+    phase_step_graphs()
     ant, humanoid, *rest = ADR_PHASES
     runs = {"Ant": phase_adr(*ant), "Cartpole": phase_adr_cartpole(),
             "Humanoid": phase_adr(*humanoid)}
