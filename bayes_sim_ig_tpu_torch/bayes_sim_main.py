@@ -303,6 +303,8 @@ def _adr_loop(args, cfg_env, cfg_train, device):
         print(f"Start BayesSim {bs_cfg['modelClass']} iter {real_iter_id}")
         set_env_distr(pdf.Uniform(spec.lows, spec.highs))  # always prior
         if bsim is None or not bs_cfg["ftune"]:
+            if bsim is not None:
+                bsim.free_graphs()
             bsim = new_bsim()
         n_trajs_done = 0
         log_bsim = None
@@ -353,7 +355,11 @@ def _adr_loop(args, cfg_env, cfg_train, device):
                 args.logdir, real_iter_id, sim_params_distr, ppo,
                 all_real_states, all_real_actions,
                 bsim=bsim if bs_cfg["ftune"] else None)
-    # The ADR phase ends: its captured steps and their memory go.
+    # The ADR phase ends: its captured steps, updates and fits and their
+    # memory go.
+    if bsim is not None:
+        bsim.free_graphs()
+    ppo.free_update_graphs()
     env.free_step_graphs()
     writer.close()
     rl_writer.close()

@@ -73,6 +73,12 @@ class BayesSim:
             kwargs_model.update(n_feat=200, sigma=sigma, kernel=kernel)
         self.model = get_model_class(model_class)(**kwargs_model)
 
+    def free_graphs(self):
+        """Drops the captured fits of the model and of the refit."""
+        self.model.free_graphs()
+        if self._refit_model is not None:
+            self._refit_model.free_graphs()
+
     @staticmethod
     def get_n_trajs_per_batch(n_train_trajs, n_train_trajs_done):
         """Next chunk size, capped so the total hits n_train_trajs
@@ -134,7 +140,7 @@ class BayesSim:
             return mogs[0]
         # Combine: resample the mixtures, fit a small unconditional MDNN on
         # the model's device. The instance is cached and re-initialized
-        # per call.
+        # per call, so its fit is captured once per BayesSim.
         tot_smpls = int(1e4)
         n_per_mog = tot_smpls // len(mogs)
         mog_smpls = np.concatenate(

@@ -10,7 +10,8 @@ semantics:
   * NLL loss: per-component multivariate-normal log-prob, clamped to
     +-1e5, plus log component weight, logsumexp over components, mean
     over the batch;
-  * Adam with a FRESH optimizer state per ``run_training`` call;
+  * Adam (optax's ``scale_by_adam`` then ``scale(-lr)``) with a FRESH
+    optimizer state per ``run_training`` call;
   * targets normalized to [0, 1] by output lows/highs; the first
     (1 - test_frac) of the data is train, the rest test, unshuffled;
     random minibatches with replacement;
@@ -18,11 +19,16 @@ semantics:
 
 The trainer is split into ``mdn_train_step`` (one update from explicit
 minibatch ids and noise) and the loop in ``MDNN.run_training`` that draws
-them from the model's generator.
+them from the model's generator. The loop's step (the draws, the update
+and its loss) runs on static buffers as a ``Graphed``
+(``utils/step_graph.py``): a CUDA graph replayed an update on the card,
+the body on the CPU. The weights and the Adam state are written in place
+(``reinit`` too), so the graph keeps reading the model's tensors.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional
 
 import numpy as np
@@ -32,10 +38,12 @@ from torch import nn
 
 from ..distributions import pdf
 from ..utils.device import resolve_device
+from ..utils.step_graph import Graphed
 
 LL_LIMIT = 1.0e5     # limit log likelihood to avoid large gradients
 MIN_WEIGHT = 1.0e-5  # minimum component weight to keep updates alive
 EPS_NOISE = 1.0e-5   # scale-diagonal stability noise
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
 
 _ACTIVATIONS = {
     "tanh": torch.tanh,
@@ -113,8 +121,11 @@ def init_mdnn_params(gen: torch.Generator, input_dim, output_dim,
     return net
 
 
-def _tril_layout(output_dim):
-    """Gather permutation + mask mapping [diag | packed-lower] -> (D, D)."""
+@functools.lru_cache(maxsize=None)
+def _tril_layout(output_dim, device):
+    """Gather permutation + mask mapping [diag | packed-lower] -> (D, D),
+    built once per width and device: a host-to-device copy per call would
+    sync every update (and could not be captured)."""
     perm = np.zeros((output_dim, output_dim), np.int64)
     mask = np.zeros((output_dim, output_dim), np.float32)
     di = np.arange(output_dim)
@@ -123,7 +134,8 @@ def _tril_layout(output_dim):
     rows, cols = np.tril_indices(output_dim, -1)
     perm[rows, cols] = output_dim + np.arange(len(rows))
     mask[rows, cols] = 1.0
-    return perm.ravel(), mask
+    return (torch.as_tensor(perm.ravel(), device=device),
+            torch.as_tensor(mask, device=device))
 
 
 def _scale_tril(l_d_k, lower_k, output_dim):
@@ -131,12 +143,10 @@ def _scale_tril(l_d_k, lower_k, output_dim):
     from the packed [diag | strict-lower] vector."""
     if lower_k is None:
         return torch.diag_embed(l_d_k)
-    perm, mask = _tril_layout(output_dim)
+    perm, mask = _tril_layout(output_dim, l_d_k.device)
     packed = torch.cat([l_d_k, lower_k], dim=1)
-    tril = packed[:, torch.as_tensor(perm, device=packed.device)].reshape(
-        l_d_k.shape[0], output_dim, output_dim)
-    return tril * torch.as_tensor(mask, dtype=l_d_k.dtype,
-                                  device=l_d_k.device)
+    tril = packed[:, perm].reshape(l_d_k.shape[0], output_dim, output_dim)
+    return tril * mask
 
 
 def mdn_loss(weights, mu, l_d, lower, y):
@@ -168,14 +178,78 @@ def mdn_loss(weights, mu, l_d, lower, y):
     return -torch.logsumexp(result, dim=1).mean()
 
 
-def mdn_train_step(model, optimizer, x_train, y_train, ids, noise):
-    """One Adam update on the minibatch ``ids`` with jitter ``noise``;
-    returns the minibatch loss (a 0-d tensor, not synchronized)."""
+@torch.no_grad()
+def adam_step(params, grads, mu, nu, count, lr):
+    """optax.adam(lr): scale_by_adam then scale(-lr), in place on
+    ``params``, the moments ``mu`` and ``nu`` and the () float32 update
+    ``count``."""
+    count.add_(1.0)
+    bc1 = 1.0 - torch.pow(ADAM_B1, count)
+    bc2 = 1.0 - torch.pow(ADAM_B2, count)
+    for p, g, m, v in zip(params, grads, mu, nu):
+        m.copy_((1.0 - ADAM_B1) * g + ADAM_B1 * m)
+        v.copy_((1.0 - ADAM_B2) * (g * g) + ADAM_B2 * v)
+        upd = (m / bc1) / (torch.sqrt(v / bc2) + ADAM_EPS)
+        p.copy_(p + (-lr) * upd)
+
+
+def mdn_train_step(model, x_train, y_train, ids, noise):
+    """One update of ``model``'s Adam on the minibatch ``ids`` with jitter
+    ``noise``; returns the minibatch loss (a 0-d tensor, not
+    synchronized)."""
     loss = mdn_loss(*model(x_train[ids], noise), y_train[ids])
-    optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    optimizer.step()
+    params = list(model.net.parameters())
+    grads = torch.autograd.grad(loss, params)
+    adam_step(params, grads, model.adam_mu, model.adam_nu, model.adam_count,
+              model.lr)
     return loss.detach()
+
+
+class _Fit:
+    """The fit's static buffers and its update step for one (n_train,
+    width, batch size, n_updates): ``x_train`` and ``y_train`` are copied
+    in (``load``); each ``step`` draws the minibatch ids, then the jitter,
+    from the model's generator, takes one Adam update, and writes its loss
+    at ``losses[t]`` (``t`` a counter on the device). ``step`` is a
+    ``Graphed``: a replay on the card."""
+
+    def __init__(self, model: "MDNN", n_train, width, batch_size,
+                 n_updates):
+        dev = model.device
+        self.model = model
+        self.batch_size, self.n_updates = int(batch_size), int(n_updates)
+        self.x_train = torch.empty((n_train, width), device=dev)
+        self.y_train = torch.empty((n_train, model.output_dim), device=dev)
+        self.losses = torch.empty(self.n_updates, device=dev)
+        self._t = torch.zeros(1, dtype=torch.int64, device=dev)
+        self._host_t = 0
+        self._program = Graphed("fit", self._step, dev, [model._gen])
+
+    def load(self, x_train, y_train):
+        self.x_train.copy_(x_train)
+        self.y_train.copy_(y_train)
+        self._t.zero_()
+        self._host_t = 0
+
+    def step(self):
+        if self._host_t >= self.n_updates:
+            raise IndexError(f"update {self._host_t} of {self.n_updates}: "
+                             f"load the next fit first")
+        self._host_t += 1
+        self._program()
+
+    def _step(self):
+        model = self.model
+        ids = torch.randint(0, self.x_train.shape[0], (self.batch_size,),
+                            generator=model._gen, device=model.device)
+        loss = mdn_train_step(model, self.x_train, self.y_train, ids,
+                              model._noise(self.batch_size))
+        with torch.no_grad():
+            self.losses.index_copy_(0, self._t, loss[None])
+            self._t.add_(1)
+
+    def free(self):
+        self._program.free()
 
 
 class MDNN:
@@ -209,14 +283,47 @@ class MDNN:
         self._init_gen = torch.Generator().manual_seed(int(seed))
         self._gen = torch.Generator(device=self.device).manual_seed(
             int(seed))
+        self.net = None
         self.reinit()
+        params = list(self.net.parameters())
+        self.adam_mu = [torch.zeros_like(p) for p in params]
+        self.adam_nu = [torch.zeros_like(p) for p in params]
+        self.adam_count = torch.zeros((), device=self.device)
+        self._fits = {}
 
     def reinit(self):
-        """Re-draws fresh init weights."""
-        self.net = init_mdnn_params(
+        """Re-draws fresh init weights, into the net's tensors after the
+        first init (a captured fit reads them in place)."""
+        net = init_mdnn_params(
             self._init_gen, self.input_dim, self.output_dim,
             self.n_gaussians, self.hidden_layers, self.full_covariance,
-            self.activation).to(self.device)
+            self.activation)
+        if self.net is None:
+            self.net = net.to(self.device)
+            return
+        with torch.no_grad():
+            for p, q in zip(self.net.parameters(), net.parameters()):
+                p.copy_(q)
+
+    @torch.no_grad()
+    def _reset_adam(self):
+        self.adam_count.zero_()
+        for m in self.adam_mu + self.adam_nu:
+            m.zero_()
+
+    def fit_program(self, n_train, width, batch_size, n_updates) -> _Fit:
+        """The fit's buffers and captured step for these shapes, cached
+        until ``free_graphs``."""
+        key = (int(n_train), int(width), int(batch_size), int(n_updates))
+        if key not in self._fits:
+            self._fits[key] = _Fit(self, *key)
+        return self._fits[key]
+
+    def free_graphs(self):
+        """Drops the captured fits and their memory pools."""
+        for fit in self._fits.values():
+            fit.free()
+        self._fits.clear()
 
     # ------------------------------------------------------------------ #
     def _features(self, x):
@@ -236,9 +343,11 @@ class MDNN:
 
     def run_training(self, x_data, y_data, n_updates, batch_size,
                      test_frac=0.2):
-        """Trains for ``n_updates`` minibatch steps; returns a log dict with
-        train/test losses at the reference's checkpoint cadence (every
-        n_updates//5 steps plus the final step)."""
+        """Trains for ``n_updates`` minibatch steps from a fresh Adam state;
+        returns a log dict with train/test losses at the reference's
+        checkpoint cadence (every n_updates//5 steps plus the final step).
+        The updates run ``fit_program``'s step (a CUDA graph replay on the
+        card); the six test losses are evaluated eagerly between them."""
         x_data = torch.as_tensor(x_data, dtype=torch.float32,
                                  device=self.device)
         y_data = torch.as_tensor(y_data, dtype=torch.float32,
@@ -254,12 +363,14 @@ class MDNN:
         x_test, y_test = ((x_data[n_train:], y_data[n_train:])
                           if n_train < n_tot
                           else (x_data[:n_train], y_data[:n_train]))
-        x_train, y_train = x_data[:n_train], y_data[:n_train]
-        optimizer = torch.optim.Adam(self.net.parameters(), lr=self.lr)
+        fit = self.fit_program(n_train, x_data.shape[1], batch_size,
+                               n_updates)
+        fit.load(x_data[:n_train], y_data[:n_train])
+        self._reset_adam()
         n_up = int(n_updates)
         n_evals = min(5, n_up)
         bounds = [i * n_up // n_evals for i in range(n_evals + 1)]
-        train_losses, test_losses = [], []
+        test_losses = []
 
         def test_loss():
             with torch.no_grad():
@@ -269,13 +380,9 @@ class MDNN:
         for s in range(n_evals):
             test_losses.append(test_loss())
             for _ in range(bounds[s], bounds[s + 1]):
-                ids = torch.randint(0, n_train, (int(batch_size),),
-                                    generator=self._gen, device=self.device)
-                train_losses.append(mdn_train_step(
-                    self, optimizer, x_train, y_train, ids,
-                    self._noise(int(batch_size))))
+                fit.step()
         test_losses.append(test_loss())
-        train_losses = torch.stack(train_losses).cpu().numpy()
+        train_losses = fit.losses.cpu().numpy()
         test_losses = torch.stack(test_losses).cpu().numpy()
         checkpoints = [s * n_up // n_evals for s in range(n_evals)] \
             + [n_up - 1]

@@ -11,6 +11,14 @@ by a multiply by the adaptive lr): ``torch.nn.utils.clip_grad_norm_`` adds
 1e-6 to the norm and ``torch.optim.Adam`` folds the lr in, so neither
 reproduces it. A minibatch whose loss or gradients are non-finite leaves
 both the params and the Adam state unchanged.
+
+The update runs as three programs on static buffers (``_Update``): GAE
+and the flat data (``prepare``), one minibatch step (``minibatch``,
+called noptepochs x nminibatches times, its row of the permutations
+chosen by a counter on the device), and the adaptive lr (``finish``).
+Each is a ``Graphed`` (``utils/step_graph.py``): a CUDA graph replay on
+the card, the body on the CPU. The weights, the Adam state and the lr are
+written in place, so the graphs keep reading the trainer's tensors.
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ from ..parallel.mesh import gather_envs, global_num_envs, is_main_process
 from ..sim.task import env_step
 from ..utils.convert import (actor_critic_params_from_jax,
                              actor_critic_params_to_jax)
-from ..utils.step_graph import StepGraph, distr_key
+from ..utils.step_graph import Graphed, StepGraph, distr_key
 from . import networks
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -64,8 +72,8 @@ def adam_init(params) -> AdamState:
 @torch.no_grad()
 def apply_update(params, grads, loss, adam: AdamState, lr, max_grad_norm):
     """clip_by_global_norm -> scale_by_adam -> scale(-lr), in place on
-    ``params``; skipped (params and Adam state kept) unless the loss and
-    every gradient are finite. Returns the new AdamState."""
+    ``params`` and on ``adam``'s tensors; skipped (params and Adam state
+    kept) unless the loss and every gradient are finite."""
     ok = torch.isfinite(loss)
     for g in grads:
         ok = ok & torch.isfinite(g).all()
@@ -75,16 +83,120 @@ def apply_update(params, grads, loss, adam: AdamState, lr, max_grad_norm):
     count = adam.count + 1.0
     bc1 = 1.0 - torch.pow(ADAM_B1, count)
     bc2 = 1.0 - torch.pow(ADAM_B2, count)
-    new_mu, new_nu = [], []
     for p, g, m, v in zip(params, grads, adam.mu, adam.nu):
         m2 = (1.0 - ADAM_B1) * g + ADAM_B1 * m
         v2 = (1.0 - ADAM_B2) * (g * g) + ADAM_B2 * v
         upd = (m2 / bc1) / (torch.sqrt(v2 / bc2) + ADAM_EPS)
         p.copy_(torch.where(ok, p + (-upd) * lr, p))
-        new_mu.append(torch.where(ok, m2, m))
-        new_nu.append(torch.where(ok, v2, v))
-    return AdamState(count=torch.where(ok, count, adam.count),
-                     mu=new_mu, nu=new_nu)
+        m.copy_(torch.where(ok, m2, m))
+        v.copy_(torch.where(ok, v2, v))
+    adam.count.copy_(torch.where(ok, count, adam.count))
+
+
+class _Update:
+    """One update's static buffers and programs for a global (T, N)
+    batch: the trajectory, ``last_val`` and the permutations, cut into
+    (noptepochs x nminibatches, mb) minibatch rows, are copied in
+    (``load``); ``prepare`` computes GAE, the returns and the normalized
+    advantages; each ``minibatch`` call takes row ``t`` (a counter on the
+    device), its loss, gradients and in-place update, and writes
+    ``metrics[t]``; ``finish`` adapts the lr in place and writes the
+    iteration's means into ``summary``."""
+
+    def __init__(self, ppo: "PPO", steps: int, envs: int, asymmetric: bool):
+        dev, f32 = ppo.device, torch.float32
+        task = ppo.task
+        self.ppo = ppo
+        self.epochs, self.minibatches = ppo.noptepochs, ppo.nminibatches
+        self.n = steps * envs
+        self.mb = self.n // self.minibatches
+        widths = {"obs": (task.obs_dim,), "act": (task.act_dim,),
+                  "logp": (), "val": (), "rew": (), "done": ()}
+        if asymmetric:
+            widths["cin"] = (ppo._state_dim,)
+        self.traj = {k: torch.empty((steps, envs) + w, dtype=f32, device=dev)
+                     for k, w in widths.items()}
+        self.last_val = torch.empty(envs, dtype=f32, device=dev)
+        self._rows = torch.empty((self.epochs * self.minibatches, self.mb),
+                                 dtype=torch.int64, device=dev)
+        self.metrics = torch.empty((self.epochs, self.minibatches, 4),
+                                   dtype=f32, device=dev)
+        # loss, pg_loss, vf_loss, approx_kl, lr, mean_reward,
+        # mean_episode_done
+        self.summary = torch.empty(7, dtype=f32, device=dev)
+        # The flat minibatch sources: views of the trajectory, and the
+        # advantages and returns that prepare writes.
+        self.data = {k: self.traj[k].view((self.n,) + widths[k])
+                     for k in ("obs", "act", "logp", "val")
+                     + (("cin",) if asymmetric else ())}
+        self.data["adv"] = torch.empty(self.n, dtype=f32, device=dev)
+        self.data["ret"] = torch.empty(self.n, dtype=f32, device=dev)
+        self._t = torch.zeros(1, dtype=torch.int64, device=dev)
+        self._host_t = 0
+        self.prepare = Graphed("update", self._prepare, dev)
+        self.minibatch = Graphed("update", self._minibatch, dev)
+        self.finish = Graphed("update", self._finish, dev)
+
+    def load(self, traj, last_val, perms):
+        for k, buf in self.traj.items():
+            buf.copy_(traj[k])
+        self.last_val.copy_(last_val)
+        # Minibatch i of epoch e is perms[e, i * mb:(i + 1) * mb].
+        e, m, mb = self.epochs, self.minibatches, self.mb
+        self._rows.view(e, m, mb).copy_(perms[:, :m * mb].view(e, m, mb))
+        self._t.zero_()
+        self._host_t = 0
+
+    def step(self):
+        """One minibatch update (the graph's replay on a card)."""
+        if self._host_t >= self.epochs * self.minibatches:
+            raise IndexError(f"minibatch {self._host_t} of "
+                             f"{self.epochs * self.minibatches}: load the "
+                             f"next iteration first")
+        self._host_t += 1
+        self.minibatch()
+
+    @torch.no_grad()
+    def _prepare(self):
+        ppo, tr = self.ppo, self.traj
+        advs = gae_advantages(tr["val"], tr["rew"], tr["done"],
+                              self.last_val, ppo.gamma, ppo.lam)
+        adv = advs.reshape(self.n)
+        self.data["adv"].copy_((adv - adv.mean())
+                               / (adv.std(correction=0) + 1e-8))
+        self.data["ret"].copy_((advs + tr["val"]).reshape(self.n))
+
+    def _minibatch(self):
+        ppo = self.ppo
+        ids = self._rows.index_select(0, self._t).view(self.mb)
+        out = ppo.loss_fn({k: v[ids] for k, v in self.data.items()})
+        grads = torch.autograd.grad(out[0], ppo.params)
+        apply_update(ppo.params, grads, out[0].detach(), ppo.adam, ppo.lr,
+                     ppo.max_grad_norm)
+        with torch.no_grad():
+            self.metrics.view(-1, 4).index_copy_(
+                0, self._t, torch.stack([o.detach() for o in out])[None])
+            self._t.add_(1)
+
+    @torch.no_grad()
+    def _finish(self):
+        ppo, metrics = self.ppo, self.metrics
+        if ppo.schedule == "adaptive" and ppo.desired_kl is not None:
+            kl_last = metrics[-1, :, 3].mean()
+            kl = float(ppo.desired_kl)
+            lr = ppo.lr
+            lr = torch.where(kl_last > kl * 2.0,
+                             torch.clamp(lr / 1.5, min=1e-6), lr)
+            lr = torch.where(kl_last < kl / 2.0,
+                             torch.clamp(lr * 1.5, max=1e-2), lr)
+            ppo.lr.copy_(lr)
+        self.summary.copy_(torch.cat([
+            metrics.reshape(-1, 4).mean(dim=0), ppo.lr[None],
+            self.traj["rew"].mean()[None], self.traj["done"].mean()[None]]))
+
+    def free(self):
+        for program in (self.prepare, self.minibatch, self.finish):
+            program.free()
 
 
 class _ActorCriticHandle:
@@ -150,8 +262,9 @@ class PPO:
         """Fresh policy/optimizer/iteration counter (the ADR loop restarts
         RL every iteration when ftuneRL is off). The fresh weights and the
         reseeded generator keep the tensors and the generator of the first
-        init: the captured steps (``utils/step_graph.py``) read them in
-        place."""
+        init, and the fresh Adam state and lr are written into the first
+        init's: the captured steps and updates (``utils/step_graph.py``)
+        read them in place."""
         init_gen = torch.Generator().manual_seed(int(seed) + 12345)
         # Every rank draws the same init from the same seed: the env axis
         # never splits the policy.
@@ -161,19 +274,30 @@ class PPO:
         if getattr(self, "net", None) is None:
             self.net = net
             self.gen = torch.Generator(device=self.device)
+            self.params = list(self.net.parameters())
+            self.adam = adam_init(self.params)
+            self.lr = torch.tensor(self.init_lr, device=self.device)
+            self._updates: Dict[tuple, _Update] = {}
         else:
             with torch.no_grad():
                 for p, q in zip(self.net.parameters(), net.parameters()):
                     p.copy_(q)
-        self.params = list(self.net.parameters())
-        self.adam = adam_init(self.params)
-        self.lr = torch.tensor(self.init_lr, device=self.device)
+            self._reset_optimizer(self.init_lr)
         self.gen.manual_seed(int(seed) + 12345)
         self.current_learning_iteration = 0
         if logdir is not None:
             self.logdir = logdir
         if writer is not None:
             self.writer = writer
+
+    @torch.no_grad()
+    def _reset_optimizer(self, lr: float):
+        """A fresh Adam state and ``lr``, written into the trainer's
+        tensors."""
+        self.adam.count.zero_()
+        for m in self.adam.mu + self.adam.nu:
+            m.zero_()
+        self.lr.fill_(lr)
 
     # ------------------------------------------------------------------ #
     def policy_apply(self, net, obs, gen):
@@ -277,51 +401,32 @@ class PPO:
         """GAE, advantage normalization, then one epoch per row of
         ``perms`` ((noptepochs, nsteps * num_envs) permutations), each cut
         into ``nminibatches`` minibatches. Updates the policy, the Adam
-        state and the lr in place; returns the iteration's metrics."""
-        advs = gae_advantages(traj["val"], traj["rew"], traj["done"],
-                              last_val, self.gamma, self.lam)
-        rets = advs + traj["val"]
-        n = traj["val"].shape[0] * traj["val"].shape[1]
+        state and the lr in place; returns the iteration's metrics. Runs
+        ``update_program``'s programs (CUDA graph replays on the card)."""
+        update = self.update_program(traj, last_val)
+        update.load(traj, last_val, perms)
+        update.prepare()
+        for _ in range(self.noptepochs * self.nminibatches):
+            update.step()
+        update.finish()
+        summary = update.summary.clone()
+        return dict(zip(("loss", "pg_loss", "vf_loss", "approx_kl", "lr",
+                         "mean_reward", "mean_episode_done"), summary))
 
-        def flat(x):
-            return x.reshape((n,) + x.shape[2:])
+    def update_program(self, traj, last_val) -> _Update:
+        """The update's buffers and programs for this global batch shape,
+        cached until ``free_update_graphs``."""
+        steps, envs = traj["val"].shape
+        key = (steps, envs, "cin" in traj)
+        if key not in self._updates:
+            self._updates[key] = _Update(self, steps, envs, "cin" in traj)
+        return self._updates[key]
 
-        adv = flat(advs)
-        adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
-        data = {"obs": flat(traj["obs"]), "act": flat(traj["act"]),
-                "logp": flat(traj["logp"]), "val": flat(traj["val"]),
-                "adv": adv, "ret": flat(rets)}
-        if "cin" in traj:
-            data["cin"] = flat(traj["cin"])
-        mb = n // self.nminibatches
-        metrics = []
-        for perm in perms:
-            epoch = []
-            for i in range(self.nminibatches):
-                ids = perm[i * mb:(i + 1) * mb]
-                batch = {k: v[ids] for k, v in data.items()}
-                out = self.loss_fn(batch)
-                grads = torch.autograd.grad(out[0], self.params)
-                self.adam = apply_update(self.params, grads, out[0].detach(),
-                                         self.adam, self.lr,
-                                         self.max_grad_norm)
-                epoch.append(torch.stack([o.detach() for o in out]))
-            metrics.append(torch.stack(epoch))
-        metrics = torch.stack(metrics)  # (epochs, minibatches, 4)
-        if self.schedule == "adaptive" and self.desired_kl is not None:
-            kl_last = metrics[-1, :, 3].mean()
-            kl = float(self.desired_kl)
-            lr = self.lr
-            lr = torch.where(kl_last > kl * 2.0,
-                             torch.clamp(lr / 1.5, min=1e-6), lr)
-            lr = torch.where(kl_last < kl / 2.0,
-                             torch.clamp(lr * 1.5, max=1e-2), lr)
-            self.lr = lr
-        loss_m, pg_m, vf_m, kl_m = metrics.reshape(-1, 4).mean(dim=0)
-        return {"loss": loss_m, "pg_loss": pg_m, "vf_loss": vf_m,
-                "approx_kl": kl_m, "lr": self.lr,
-                "mean_reward": traj["rew"].mean(),
-                "mean_episode_done": traj["done"].mean()}
+    def free_update_graphs(self):
+        """Drops the update's captured programs and their memory pools."""
+        for update in self._updates.values():
+            update.free()
+        self._updates.clear()
 
     def train_iteration(self, distr, env_state, obs):
         """Rollout of this rank's envs, all-gathered into the global
@@ -386,9 +491,7 @@ class PPO:
             payload = pickle.load(f)
         self.net.load_state_dict(
             actor_critic_params_from_jax(payload["params"]))
-        self.adam = adam_init(self.params)
-        self.lr = torch.tensor(float(payload.get("lr", self.init_lr)),
-                               device=self.device)
+        self._reset_optimizer(float(payload.get("lr", self.init_lr)))
         self.current_learning_iteration = payload.get("iteration", 0)
         return self
 

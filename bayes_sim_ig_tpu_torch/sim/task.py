@@ -259,6 +259,8 @@ class VecEnv:
 
     def free_step_graphs(self):
         """Drops every captured step, with its graph's memory pool."""
+        for graph in self.step_graphs.values():
+            graph.free()
         self.step_graphs.clear()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()

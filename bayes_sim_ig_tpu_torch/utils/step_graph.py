@@ -1,30 +1,30 @@
-"""One env step captured as a CUDA graph and replayed for every step of a
-collection round or a PPO rollout.
+"""CUDA graphs of the port's compiled programs: one env step of a
+collection round or a PPO rollout (``StepGraph``), and the PPO update and
+the MDN fit (``rl/ppo.py``, ``models/mdnn.py``), which all capture their
+bodies through ``Graphed``.
 
-The JAX package runs each of those loops as one jitted ``lax.scan``
-(``utils/collect.py::_collect_round``; the rollout of
-``rl/ppo.py::_build_train_iteration``). An eager torch step is 1,300-2,400
-small launches, and the host, not the card, then sets its pace. Here the
-loop's body (the policy, the collection policy and ``env_step``) works on
-static buffers: the env state, the observations, the sampling
-distribution, and (T, N, ...) trajectory buffers written at a step
-counter that lives on the device. On a CUDA device the first step of a
-``StepGraph`` runs the body eagerly on a side stream (it builds the
+The JAX package runs each of these as one jitted program: the collection
+round (``utils/collect.py::_collect_round``) and the rollout as a
+``lax.scan`` of env steps, the PPO update as GAE's and the epochs'
+``lax.scan``s, the MDN fit as a ``lax.scan`` of Adam steps. An eager torch
+step is hundreds to thousands of small launches, and the host, not the
+card, then sets its pace. Here each loop's body works on static buffers,
+with its step counters on the device. On a CUDA device the first call of
+a ``Graphed`` runs the body eagerly on a side stream (it builds the
 per-model tables and loads every kernel), then captures it into a
-``torch.cuda.CUDAGraph``; every later step is one replay. On the CPU the
-body runs eagerly at every step. The device alone picks the path: there
+``torch.cuda.CUDAGraph``; every later call is one replay. On the CPU the
+body runs eagerly at every call. The device alone picks the path: there
 is no switch, and a capture that fails raises.
 
 What a graph reads must stay where it was captured:
   * the random generators are registered with the graph, so that a replay
     draws what the eager body draws and leaves each generator where the
-    eager step leaves it;
-  * the policy's weights are read in place (``PPO`` writes them with
-    ``copy_``, and ``PPO.reinit`` writes fresh ones into the same
-    tensors);
-  * a round's first state and its distribution's values are copied into
-    the buffers (``load``), so a graph is keyed on the distribution's
-    kind and shapes (``distr_key``), not on its values.
+    eager body leaves it;
+  * the weights and the optimizer state are read and written in place
+    (``PPO`` and the MDN models write them with ``copy_``, and their
+    ``reinit`` writes fresh ones into the same tensors);
+  * inputs are copied into the buffers (``load``), so a graph is keyed on
+    their kinds and shapes (``distr_key``), not on their values.
 Each kernel wrapper counts its launches on the host. A capture's counts
 are put back and added again at every replay, so the counts stay those
 of the launches the card ran.
@@ -33,6 +33,7 @@ of the launches the card ran.
 from __future__ import annotations
 
 import time
+import weakref
 from typing import Callable, Dict, Sequence, Tuple
 
 import torch
@@ -40,9 +41,86 @@ import torch
 from ..ops.launch import launch_counts, set_launch_counts
 
 # Captures, replays and capture seconds of this process, by phase
-# ("collect", "rollout"); read and reset by callers that must show a run
-# went through the graphs.
+# ("collect", "rollout", "update", "fit"); read and reset by callers that
+# must show a run went through the graphs.
 STATS: Dict[str, Dict[str, float]] = {}
+
+# Every Graphed of this process, held weakly: live_graphs() reads the
+# captures that were not freed.
+_ALL: "weakref.WeakSet[Graphed]" = weakref.WeakSet()
+
+
+def live_graphs() -> list:
+    """The phases of the captured graphs that are alive and not freed."""
+    return sorted(g.phase for g in _ALL if g._graph is not None)
+
+
+class Graphed:
+    """``body()``, a function of static buffers and generators only, run
+    by calling this object: eagerly on the CPU; on a CUDA device the first
+    call runs it eagerly on a side stream and captures it there (with
+    ``generators`` registered), and every later call replays the capture.
+    ``phase`` names its line in ``STATS``."""
+
+    def __init__(self, phase: str, body: Callable[[], None], device,
+                 generators: Sequence[torch.Generator] = ()):
+        self.phase = phase
+        self.body = body
+        self.device = torch.device(device)
+        self._generators = list(generators)
+        self._stats = STATS.setdefault(
+            phase, {"captures": 0, "replays": 0, "capture_s": 0.0})
+        self._graph = None
+        self._launches = None
+        self.replays = 0
+        self.capture_s = None
+        _ALL.add(self)
+
+    def __call__(self):
+        if self.device.type != "cuda":
+            self.body()
+            return
+        if self._graph is None:
+            self._capture()
+            return
+        self._graph.replay()
+        counts = launch_counts()
+        set_launch_counts({k: c + self._launches[k]
+                           for k, c in counts.items()})
+        self.replays += 1
+        self._stats["replays"] += 1
+
+    def _capture(self):
+        """Runs the body eagerly on a side stream, then captures it on that
+        stream (no kernel runs in a capture), with every generator
+        registered."""
+        with torch.cuda.device(self.device):
+            current, side = torch.cuda.current_stream(), torch.cuda.Stream()
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                self.body()
+            current.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            for gen in self._generators:
+                graph.register_generator_state(gen)
+            before = launch_counts()
+            t0 = time.perf_counter()
+            with torch.cuda.graph(graph, stream=side):
+                self.body()
+            self.capture_s = time.perf_counter() - t0
+            after = launch_counts()
+        set_launch_counts(before)
+        self._launches = {k: after[k] - before[k] for k in after}
+        self._graph = graph
+        self._stats["captures"] += 1
+        self._stats["capture_s"] += self.capture_s
+
+    def free(self):
+        """Drops the capture and its memory pool; the next call captures
+        again."""
+        if self._graph is not None:
+            self._graph.reset()
+            self._graph = None
 
 
 def _leaves(tree) -> list:
@@ -79,8 +157,6 @@ class StepGraph:
                  outputs: Dict[str, Tuple[tuple, torch.dtype]],
                  generators: Sequence[torch.Generator]):
         self.device = obs.device
-        self._stats = STATS.setdefault(
-            phase, {"captures": 0, "replays": 0, "capture_s": 0.0})
         self._body = body
         self.state = _clone(state)
         self.obs = obs.clone()
@@ -91,11 +167,15 @@ class StepGraph:
                      for k, (shape, dtype) in outputs.items()}
         self._t = torch.zeros(1, dtype=torch.int64, device=self.device)
         self._host_t = 0
-        self._generators = list(generators)
-        self._graph = None
-        self._launches = None
-        self.replays = 0
-        self.capture_s = None
+        self._program = Graphed(phase, self._run, self.device, generators)
+
+    @property
+    def replays(self) -> int:
+        return self._program.replays
+
+    @property
+    def capture_s(self):
+        return self._program.capture_s
 
     def load(self, state, obs: torch.Tensor, distr):
         """Copies a round's first state, its observations and the
@@ -136,42 +216,9 @@ class StepGraph:
     def step(self):
         """One step: a replay of the captured step on a CUDA device (the
         first step captures it), the body on the CPU."""
-        if self.device.type != "cuda":
-            self.body()
-            return
-        if self._graph is None:
-            self._capture()
-            return
         self._advance()
-        self._graph.replay()
-        counts = launch_counts()
-        set_launch_counts({k: c + self._launches[k]
-                           for k, c in counts.items()})
-        self.replays += 1
-        self._stats["replays"] += 1
+        self._program()
 
-    def _capture(self):
-        """Runs this step eagerly on a side stream, then captures the body
-        on that stream (no kernel runs in a capture), with every generator
-        registered."""
-        self._advance()
-        with torch.cuda.device(self.device):
-            current, side = torch.cuda.current_stream(), torch.cuda.Stream()
-            side.wait_stream(current)
-            with torch.cuda.stream(side):
-                self._run()
-            current.wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            for gen in self._generators:
-                graph.register_generator_state(gen)
-            before = launch_counts()
-            t0 = time.perf_counter()
-            with torch.cuda.graph(graph, stream=side):
-                self._run()
-            self.capture_s = time.perf_counter() - t0
-            after = launch_counts()
-        set_launch_counts(before)
-        self._launches = {k: after[k] - before[k] for k in after}
-        self._graph = graph
-        self._stats["captures"] += 1
-        self._stats["capture_s"] += self.capture_s
+    def free(self):
+        """Drops the captured step and its memory pool."""
+        self._program.free()

@@ -70,6 +70,18 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      eager step under sync debug mode "error" (no host sync, no
      host-to-device copy); prints the wall ms per step graphed and
      eager, the graphed step's device ms and the capture seconds;
+  4a. the update and fit graphs: the PPO update (rl/ppo.py: prepare,
+     noptepochs x nminibatches minibatch steps, finish) of Ant (1024 x 16
+     rows, 4 x 4), Humanoid (4096 x 32, 5 x 4), ShadowHand with the
+     asymmetric critic (1024 x 8, 5 x 4) and Pendulum (100 x 64, 8 x 8)
+     on a rollout at full width, and the MDN fit (models/mdnn.py) of
+     Pendulum's MDNN (a 1000-row chunk, 100 updates of 100), Cartpole's
+     MDRFF (the RFF kernel inside the graph), the posterior refit (10,000
+     rows, 500 updates) and a small full-covariance MDNN: replays against
+     the eager bodies bit for bit (params, Adam state, lr, metrics,
+     losses, generators) with equal launches; wall ms per update graphed
+     and eager, device ms, operations, busy share and capture seconds,
+     with the card's name and power limit;
   4b. the ADR loop on Ant at full width (1024 envs, 17 params,
      trainTrajLen 50, summary_corrdiff, MDNN [128, 128] x 10 components,
      PPO [256, 128, 64] with nsteps 16) for 2 ADR iterations through
@@ -81,6 +93,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      summary_corrdiff features d = 302, 200 RFF features, 10 components
      over 13 params) for 2 ADR iterations; checks that rff_features was
      launched, and the same as phase 4;
+  5a. one Cartpole + MDRFF ADR iteration from seed 0 with every graph and
+     with every graph bound to its eager body by this script: every
+     collected batch, the PPO and MDN params, the RFF frequencies and the
+     posterior compared bit for bit (the first differing array printed);
   6. the ADR loop on Humanoid at full width (4096 envs, 37 params,
      trainTrajLen 50, summary_corrdiff, MDNN [128, 128] x 10 components,
      PPO [400, 200, 100] elu with nsteps 32) for 2 ADR iterations
@@ -117,9 +133,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      checked for values, and setup_parallelism(512), which must leave a
      single device and no mesh; the group is destroyed after.
 Each ADR phase runs its collection rounds and PPO rollouts as CUDA
-graphs of one step (utils/step_graph.py) and checks that it replayed
-them; the env step profiles (Anymal, ShadowHand, the full_state probe)
-time the step eager and as a graph. Each ADR phase sets every kernel's
+graphs of one step, and its PPO updates and MDN fits as CUDA graphs
+(utils/step_graph.py), checks that it replayed each and freed every
+graph it captured, and times the phases and, inside them, the
+summarizer, the fits, and predict's refit, mixtures and sampling; the
+env step profiles (Anymal, ShadowHand, the full_state probe) time the
+step eager and as a graph. Each ADR phase sets every kernel's
 launch count to 0 just before it runs and reads the counts just after
 (a graph replay adds the launches its capture counted). The line before
 the card's line is a JSON object with each kernel's numbers, its bound
@@ -134,6 +153,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import contextlib
+import gc
 import json
 import os
 import pickle
@@ -969,39 +989,71 @@ def _read_launches():
 
 class _PhaseTimer:
     """Seconds spent in the ADR loop's phases (PPO, collection, MDN
-    training, posterior), each timed between two synchronizes."""
+    training, posterior), each timed between two synchronizes, and inside
+    them: the summarizer, the model's fits (``MDNN.run_training``), and in
+    ``predict`` the refit's fit, ``predict_MoGs`` (the forward and the
+    host's mixtures) and the host's sampling of the mixtures
+    (``MoG.gen``). A nested time is part of its caller's."""
 
     def __init__(self):
-        from bayes_sim_ig_tpu_torch import bayes_sim_main, engine
-        from bayes_sim_ig_tpu_torch.rl import ppo
         self.secs = collections.defaultdict(float)
-        self._targets = [(ppo.PPO, "run", "ppo.run"),
-                         (bayes_sim_main, "collect_trajectories", "collect"),
-                         (engine.BayesSim, "run_training",
-                          "bsim.run_training"),
-                         (engine.BayesSim, "predict", "bsim.predict")]
+        self._in_predict = False
         self._saved = []
 
-    def _wrap(self, fn, label):
+    def _timed(self, fn, label):
+        """``fn`` timed into ``label`` (a name, or a function giving it)."""
         def timed(*args, **kwargs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
-            self.secs[label] += time.perf_counter() - t0
+            name = label() if callable(label) else label
+            self.secs[name] += time.perf_counter() - t0
             return out
         return timed
 
+    def _predict(self, fn):
+        timed = self._timed(fn, "bsim.predict")
+
+        def predict(*args, **kwargs):
+            self._in_predict = True
+            try:
+                return timed(*args, **kwargs)
+            finally:
+                self._in_predict = False
+        return predict
+
+    def _patch(self, owner, attr, new):
+        self._saved.append((owner, attr, getattr(owner, attr)))
+        setattr(owner, attr, new)
+
     def __enter__(self):
-        for owner, attr, label in self._targets:
-            fn = getattr(owner, attr)
-            self._saved.append((owner, attr, fn))
-            setattr(owner, attr, self._wrap(fn, label))
+        from bayes_sim_ig_tpu_torch import bayes_sim_main, engine
+        from bayes_sim_ig_tpu_torch.distributions import pdf
+        from bayes_sim_ig_tpu_torch.models import MDNN
+        from bayes_sim_ig_tpu_torch.rl import ppo
+        get_summarizer = engine.get_summarizer
+        self._patch(ppo.PPO, "run", self._timed(ppo.PPO.run, "ppo.run"))
+        self._patch(bayes_sim_main, "collect_trajectories", self._timed(
+            bayes_sim_main.collect_trajectories, "collect"))
+        self._patch(engine.BayesSim, "run_training", self._timed(
+            engine.BayesSim.run_training, "bsim.run_training"))
+        self._patch(engine.BayesSim, "predict",
+                    self._predict(engine.BayesSim.predict))
+        self._patch(engine, "get_summarizer", lambda name: self._timed(
+            get_summarizer(name), "summarizer"))
+        self._patch(MDNN, "run_training", self._timed(
+            MDNN.run_training,
+            lambda: "refit.fit" if self._in_predict else "mdn.fit"))
+        self._patch(MDNN, "predict_MoGs", self._timed(MDNN.predict_MoGs,
+                                                      "predict_MoGs"))
+        self._patch(pdf.MoG, "gen", self._timed(pdf.MoG.gen, "MoG.gen"))
         return self
 
     def __exit__(self, *exc):
-        for owner, attr, fn in self._saved:
+        for owner, attr, fn in reversed(self._saved):
             setattr(owner, attr, fn)
+        self._saved.clear()
 
     def line(self):
         graphs = "; ".join(
@@ -1012,7 +1064,9 @@ class _PhaseTimer:
                 + (f"; {graphs}" if graphs else ""))
 
 
-def _run_adr(task, cfg, name, iters=2):
+def _run_main(task, cfg, name, timer=None):
+    """``bayes_sim_main.main`` on ``cfg`` with seed 0 and 5 PPO iterations
+    an ADR iteration, its output in runs/chip_smoke/<name>/loop.log."""
     from bayes_sim_ig_tpu_torch import bayes_sim_main
     run_dir = os.path.join(RUN_DIR, name)
     shutil.rmtree(run_dir, ignore_errors=True)
@@ -1026,24 +1080,33 @@ def _run_adr(task, cfg, name, iters=2):
     # The loop's own printing (configs, posteriors) goes to a log file, so
     # that this script's summary lines stay short.
     log_path = os.path.join(run_dir, "loop.log")
-    from bayes_sim_ig_tpu_torch.utils import step_graph
-    step_graph.STATS.clear()
-    _reset_launches()
-    t0 = time.perf_counter()
     with open(log_path, "w") as log, contextlib.redirect_stdout(log), \
-            _PhaseTimer() as timer:
+            timer or contextlib.nullcontext():
         out = bayes_sim_main.main(argv)
     torch.cuda.synchronize()
+    return out
+
+
+def _run_adr(task, cfg, name, iters=2):
+    from bayes_sim_ig_tpu_torch.utils import step_graph
+    step_graph.STATS.clear()
+    gc.collect()  # the garbage of earlier phases, graphs included
+    _reset_launches()
+    t0 = time.perf_counter()
+    timer = _PhaseTimer()
+    out = _run_main(task, cfg, name, timer)
     secs = time.perf_counter() - t0
     launches = _read_launches()
-    # The collection rounds and the PPO rollouts ran as graph replays.
-    for phase in ("collect", "rollout"):
+    # The collection rounds, the PPO rollouts and updates and the MDN fits
+    # ran as graph replays, and the loop freed every graph it captured.
+    for phase in ("collect", "rollout", "update", "fit"):
         if step_graph.STATS.get(phase, {}).get("replays", 0) <= 0:
             raise AssertionError(f"{name}: no {phase} step was replayed "
                                  f"from a CUDA graph")
     timer.graphs = {k: dict(v) for k, v in step_graph.STATS.items()}
-    if out["env"].step_graphs:
-        raise AssertionError(f"{name}: the ADR loop kept its graphs")
+    if out["env"].step_graphs or step_graph.live_graphs():
+        raise AssertionError(f"{name}: the ADR loop kept its graphs: "
+                             f"{step_graph.live_graphs()}")
     _on_cuda(list(out["bsim"].model.net.parameters()), "BayesSim model")
     # The refit combines the posteriors of the surrogate-real trajectories
     # accumulated over iterations: the first iteration has one.
@@ -1091,6 +1154,68 @@ def phase_adr_cartpole():
           f"{timer.line()}); launches {launches}; posteriors finite; model, "
           f"refit, policy and env tensors on cuda", flush=True)
     return launches
+
+
+def phase_adr_graph_vs_eager():
+    """One Cartpole + MDRFF ADR iteration (512 envs, trainTrajs 2000,
+    5 PPO iterations) twice from seed 0 (numpy's global state and torch's
+    seeded too): with every graph, then with every Graphed bound to its
+    eager body by this script. Compares every collected batch (params,
+    states, actions, rewards), the PPO params, the MDN params and RFF
+    frequencies, and the posterior, bit for bit; prints the first array
+    that differs, if one does."""
+    from bayes_sim_ig_tpu_torch import bayes_sim_main
+    from bayes_sim_ig_tpu_torch.utils.args import load_config
+    cfg = load_config(os.path.join(HERE, "bayes_sim_ig_tpu_torch", "cfg",
+                                   "cartpole.yaml"))
+    cfg["bayessim"].update(modelClass="MDRFF", trainTrajs=2000, realIters=1)
+    runs, secs = [], []
+    for bodies in (False, True):
+        np.random.seed(0)
+        torch.manual_seed(0)
+        got = collections.OrderedDict()
+        collect = bayes_sim_main.collect_trajectories
+
+        def recording(*args, **kwargs):
+            out = collect(*args, **kwargs)
+            i = len(got) // 4
+            for k, v in zip(("params", "states", "actions", "rewards"),
+                            out[:4]):
+                got[f"collection {i} {k}"] = v.detach().clone()
+            return out
+        bayes_sim_main.collect_trajectories = recording
+        t0 = time.perf_counter()
+        try:
+            with _eager_bodies() if bodies else contextlib.nullcontext():
+                out = _run_main("Cartpole", cfg, "adr_graph_vs_eager_"
+                                + ("bodies" if bodies else "graphs"))
+        finally:
+            bayes_sim_main.collect_trajectories = collect
+        secs.append(time.perf_counter() - t0)
+        for k, p in out["ppo"].net.named_parameters():
+            got[f"ppo {k}"] = p.detach().clone()
+        model = out["bsim"].model
+        for k, p in model.net.named_parameters():
+            got[f"mdn {k}"] = p.detach().clone()
+        got["rff coeff"] = model.rff.coeff.clone()
+        with open(os.path.join(out["logdir"], "checkpoints",
+                               "posterior_0.pkl"), "rb") as f:
+            post = pickle.load(f)
+        for k in ("weights", "means", "covs"):
+            got[f"posterior {k}"] = torch.as_tensor(np.asarray(post[k]))
+        runs.append(got)
+    diffs = _bit_diffs(*runs)
+    first = next(iter(diffs), None)
+    verdict = ("equal bit for bit" if not diffs else
+               f"DIFFER: first {first} (max abs {diffs[first][0]:.3g}, max "
+               f"rel {diffs[first][1]:.3g}); {len(diffs)} arrays differ: "
+               f"{', '.join(diffs)}")
+    print(f"[adr-graphs-vs-eager] Cartpole+MDRFF 512 envs, 1 ADR iteration "
+          f"with every graph ({secs[0]:.2f} s) and through the eager bodies "
+          f"({secs[1]:.2f} s): {len(runs[0])} arrays (every collected "
+          f"batch, PPO params, MDN params, RFF frequencies, posterior) "
+          f"{verdict}", flush=True)
+    return diffs
 
 
 def phase_adr_pendulum():
@@ -1221,28 +1346,48 @@ def _graph_vs_eager(g, load, gens, n):
                      if after[k] != before[k]}
 
     (graph, g_launches), (eager, e_launches) = run(g.step), run(g.body)
+    return _bit_diffs(graph, eager), g_launches, e_launches
+
+
+def _bit_diffs(got, want):
+    """{name: (max abs, max relative deviation)} of every array of ``got``
+    that is not bit for bit ``want``'s, in ``got``'s order."""
     diffs = {}
-    for name, a in graph.items():
-        b = eager[name]
-        if a.dtype != b.dtype or not torch.equal(_bits(a), _bits(b)):
+    for name, a in got.items():
+        b = want[name]
+        if (a.dtype != b.dtype or a.shape != b.shape
+                or not torch.equal(_bits(a), _bits(b))):
+            if a.shape != b.shape:
+                diffs[name] = (float("inf"), float("inf"))
+                continue
             d = (a.double() - b.double()).abs().nan_to_num(nan=float("inf"))
             rel = d / b.double().abs().clamp(min=1e-30)
             diffs[name] = (float(d.max()), float(rel.max()))
-    return diffs, g_launches, e_launches
+    return diffs
+
+
+def _diff_line(diffs):
+    return "; ".join(f"{k} (max abs {a:.3g}, max rel {r:.3g})"
+                     for k, (a, r) in diffs.items())
+
+
+def _wall_ms(fn, n, warmup=1):
+    """Host ms per call of n calls after ``warmup``, synchronized on each
+    side."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
 
 
 def _timed_steps(g, load, n, body=False):
     """Wall ms per step of n steps after 3 (replays, or eager bodies)."""
-    step = g.body if body else g.step
     load()
-    for _ in range(3):
-        step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        step()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / n
+    return _wall_ms(g.body if body else g.step, n, warmup=3)
 
 
 def _no_sync_step(g, load):
@@ -1342,10 +1487,8 @@ def step_graph_check(task_name, stem, envs, edits):
     diffs = {**{f"collect {k}": v for k, v in c_diffs.items()},
              **{f"rollout {k}": v for k, v in r_diffs.items()}}
     if diffs:
-        raise AssertionError(
-            f"{task_name}: graph and eager differ in "
-            + "; ".join(f"{k} (max abs {a:.3g}, max rel {r:.3g})"
-                        for k, (a, r) in diffs.items()))
+        raise AssertionError(f"{task_name}: graph and eager differ in "
+                             + _diff_line(diffs))
     for what, gl, el in (("collect", c_graph, c_eager),
                          ("rollout", r_graph, r_eager)):
         if gl != el:
@@ -1377,6 +1520,301 @@ def step_graph_check(task_name, stem, envs, edits):
           f"{time.perf_counter() - t_task:.1f} s", flush=True)
     env.free_step_graphs()
     return record
+
+
+# ------------------------------------------------------------------ #
+# The update and fit graphs against their eager bodies
+# ------------------------------------------------------------------ #
+@contextlib.contextmanager
+def _eager_bodies():
+    """Every ``Graphed`` (the step, update and fit programs) bound to its
+    eager body: this script's own binding, which the package has no switch
+    for."""
+    from bayes_sim_ig_tpu_torch.utils.step_graph import Graphed
+    call = Graphed.__call__
+    Graphed.__call__ = lambda self: self.body()
+    try:
+        yield
+    finally:
+        Graphed.__call__ = call
+
+
+def _ppo_state(ppo):
+    """Copies of the policy, the Adam state, the lr and both generators."""
+    got = {f"param {k}": p.detach().clone()
+           for k, p in ppo.net.named_parameters()}
+    got["adam count"] = ppo.adam.count.clone()
+    for i, (m, v) in enumerate(zip(ppo.adam.mu, ppo.adam.nu)):
+        got[f"adam mu {i}"], got[f"adam nu {i}"] = m.clone(), v.clone()
+    got["lr"] = ppo.lr.clone()
+    got["generator ppo"] = ppo.gen.get_state()
+    got["generator env"] = ppo.vec_env.gen.get_state()
+    return got
+
+
+def _set_ppo_state(ppo, st):
+    with torch.no_grad():
+        for k, p in ppo.net.named_parameters():
+            p.copy_(st[f"param {k}"])
+        ppo.adam.count.copy_(st["adam count"])
+        for i, (m, v) in enumerate(zip(ppo.adam.mu, ppo.adam.nu)):
+            m.copy_(st[f"adam mu {i}"])
+            v.copy_(st[f"adam nu {i}"])
+        ppo.lr.copy_(st["lr"])
+    ppo.gen.set_state(st["generator ppo"])
+    ppo.vec_env.gen.set_state(st["generator env"])
+
+
+# The PPO updates held to their bodies at full width: (task, config stem,
+# numEnvs, env edits, noptepochs x nminibatches); ShadowHand with the
+# asymmetric critic.
+UPDATE_TASKS = [("Ant", "ant", 1024, {}, (4, 4)),
+                ("Humanoid", "humanoid", 4096, {}, (5, 4)),
+                ("ShadowHand", "shadow_hand", 1024,
+                 {"asymmetric_observations": True}, (5, 4)),
+                ("Pendulum", "pendulum", 100, {}, (8, 8))]
+
+
+def update_graph_check(task_name, stem, envs, edits, shape, smi):
+    """One PPO update (``update_from_traj``: prepare, noptepochs x
+    nminibatches minibatch steps, finish) on a rollout of the task at full
+    width, as graph replays (after the call that captures) and as the
+    eager bodies from the same params, Adam state, lr and generators:
+    every one of them and the update's metrics bit for bit, the launches
+    equal; wall ms per update graphed and eager, its device ms, operations
+    and busy share, and the three programs' capture seconds."""
+    from bayes_sim_ig_tpu_torch.rl.ppo import process_ppo
+    from bayes_sim_ig_tpu_torch.sim import make_env
+    from bayes_sim_ig_tpu_torch.utils.args import load_config
+    cfg_dir = os.path.join(HERE, "bayes_sim_ig_tpu_torch", "cfg")
+    t_task = time.perf_counter()
+    cfg = load_config(os.path.join(cfg_dir, f"{stem}.yaml"))
+    cfg["env"].update(edits)
+    assert cfg["env"]["numEnvs"] == envs
+    env = make_env(task_name, cfg, seed=0, device="cuda:0")
+    ppo = process_ppo(env, load_config(os.path.join(
+        cfg_dir, "train", f"ppo_{stem}.yaml")),
+        logdir=os.path.join(RUN_DIR, "updates", stem), seed=0)
+    assert (ppo.noptepochs, ppo.nminibatches) == shape
+    post = _posterior(env.task.params_spec)
+    env.set_distr(post)
+    obs = env.reset()
+    _, _, traj, last_val = ppo.rollout(post, env.state, obs)
+    perms = torch.stack([
+        torch.randperm(ppo.nsteps * envs, generator=ppo.gen, device="cuda:0")
+        for _ in range(ppo.noptepochs)])
+    start = _ppo_state(ppo)
+
+    def update():
+        return ppo.update_from_traj(traj, last_val, perms)
+    update()  # captures prepare, minibatch and finish
+    program = ppo.update_program(traj, last_val)
+
+    def run(bodies):
+        _set_ppo_state(ppo, start)
+        before = _read_launches()
+        with _eager_bodies() if bodies else contextlib.nullcontext():
+            out = update()
+        torch.cuda.synchronize()
+        after = _read_launches()
+        got = _ppo_state(ppo)
+        got["metrics"] = program.metrics.clone()
+        got.update({f"out {k}": v for k, v in out.items()})
+        return got, {k: after[k] - before[k] for k in after
+                     if after[k] != before[k]}
+    replays = program.minibatch.replays
+    (graph, g_launches), (eager, e_launches) = run(False), run(True)
+    if program.minibatch.replays - replays != ppo.noptepochs * \
+            ppo.nminibatches:
+        raise AssertionError(f"{task_name}: the update did not replay")
+    diffs = _bit_diffs(graph, eager)
+    if diffs:
+        raise AssertionError(f"{task_name} update: graph and eager differ "
+                             f"in {_diff_line(diffs)}")
+    if g_launches != e_launches:
+        raise AssertionError(f"{task_name} update: launches {g_launches} "
+                             f"!= eager {e_launches}")
+    n_mb = ppo.noptepochs * ppo.nminibatches
+    wall = _wall_ms(update, 5)
+    with _eager_bodies():
+        eager_wall = _wall_ms(update, 2)
+    # One update a trace: Pendulum's is tens of thousands of operations.
+    dev, ops = _device_profile(update, n=1)
+    with _eager_bodies():
+        eager_dev, eager_ops = _device_profile(update, n=1, traces=2)
+    capture = sum(p.capture_s for p in (program.prepare, program.minibatch,
+                                        program.finish))
+    busy = "not measured" if dev is None else f"{dev / wall:.3f}"
+    rows = ppo.nsteps * envs // ppo.nminibatches
+    print(f"[train-graphs] {task_name} PPO update ({ppo.nsteps} x {envs} "
+          f"rows, {ppo.noptepochs} x {ppo.nminibatches} minibatches of "
+          f"{rows}{', asymmetric' if ppo.asymmetric else ''}): replays "
+          f"equal the eager bodies bit for bit ({len(graph)} arrays: "
+          f"params, Adam state, lr, metrics, generators); update graphed "
+          f"{wall:.2f} ms wall ({wall / n_mb:.3f} ms a minibatch) against "
+          f"eager {eager_wall:.2f} ms ({eager_wall / n_mb:.3f}), device "
+          f"{_fmt(dev)} ({ops} device operations, busy share {busy}) "
+          f"against eager {_fmt(eager_dev)} ({eager_ops}), "
+          f"3 programs captured in {capture:.3f} s; "
+          f"{time.perf_counter() - t_task:.1f} s | {smi}", flush=True)
+    record = {"rows": ppo.nsteps * envs, "minibatches": n_mb,
+              "wall_ms": wall, "eager_wall_ms": eager_wall, "dev_ms": dev,
+              "eager_dev_ms": eager_dev, "ops": ops, "capture_s": capture}
+    ppo.free_update_graphs()
+    env.free_step_graphs()
+    return record
+
+
+def _model_state(model):
+    got = {f"param {k}": p.detach().clone()
+           for k, p in model.net.named_parameters()}
+    got["adam count"] = model.adam_count.clone()
+    for i, (m, v) in enumerate(zip(model.adam_mu, model.adam_nu)):
+        got[f"adam mu {i}"], got[f"adam nu {i}"] = m.clone(), v.clone()
+    got["generator"] = model._gen.get_state()
+    return got
+
+
+def fit_graph_check(name, model, x, y, n_updates, batch_size, smi):
+    """``run_training`` of ``model`` on (x, y) as replays of its fit step
+    (after the call that captures) and as the eager body from the same
+    weights and generator: weights, Adam state, every train loss, the six
+    test losses and the generator bit for bit, the launches equal; wall ms
+    per update graphed and eager, device ms per update, operations, busy
+    share and capture seconds."""
+    t0 = time.perf_counter()
+    start = _model_state(model)
+
+    def fit():
+        return model.run_training(x, y, n_updates, batch_size)
+    fit()  # captures the step
+    n_train = max(int(x.shape[0] * 0.8), 1)
+    program = model.fit_program(n_train, x.shape[1], batch_size, n_updates)
+
+    def run(bodies):
+        with torch.no_grad():
+            for k, p in model.net.named_parameters():
+                p.copy_(start[f"param {k}"])
+        model._gen.set_state(start["generator"])
+        before = _read_launches()
+        with _eager_bodies() if bodies else contextlib.nullcontext():
+            log = fit()
+        torch.cuda.synchronize()
+        after = _read_launches()
+        got = _model_state(model)
+        got["train losses"] = program.losses.clone()
+        got["test losses"] = torch.tensor(log["test_loss"])
+        return got, {k: after[k] - before[k] for k in after
+                     if after[k] != before[k]}
+    (graph, g_launches), (eager, e_launches) = run(False), run(True)
+    diffs = _bit_diffs(graph, eager)
+    if diffs:
+        raise AssertionError(f"{name} fit: graph and eager differ in "
+                             f"{_diff_line(diffs)}")
+    if g_launches != e_launches:
+        raise AssertionError(f"{name} fit: launches {g_launches} != eager "
+                             f"{e_launches}")
+    steps = min(n_updates, 20)
+    xt, yt = program.x_train.clone(), program.y_train.clone()
+
+    def updates():
+        program.load(xt, yt)
+        for _ in range(steps):
+            program.step()
+    wall = _wall_ms(updates, 3) / steps
+    with _eager_bodies():
+        eager_wall = _wall_ms(updates, 1) / steps
+    dev, ops = _device_profile(updates, n=1)
+    dev = None if dev is None else dev / steps
+    with _eager_bodies():
+        eager_dev = _device_ms(updates, n=1, traces=2)
+    eager_dev = None if eager_dev is None else eager_dev / steps
+    busy = "not measured" if dev is None else f"{dev / wall:.3f}"
+    width = "x".join(str(h) for h in model.hidden_layers) or "no hidden"
+    print(f"[train-graphs] {name} fit ({x.shape[0]} rows of {x.shape[1]}, "
+          f"MDN [{width}] x {model.n_gaussians} over {model.output_dim} "
+          f"dims{', full covariance' if model.full_covariance else ''}, "
+          f"{n_updates} updates of {batch_size}): replays equal the eager "
+          f"body bit for bit ({len(graph)} arrays: weights, Adam state, "
+          f"losses, generator); launches of a fit {g_launches or 'none'} == "
+          f"eager; update graphed {wall:.3f} ms wall against eager "
+          f"{eager_wall:.3f} ms, device {_fmt(dev)} "
+          f"({None if ops is None else ops / steps} device operations, "
+          f"busy share {busy}) against eager {_fmt(eager_dev)}, captured "
+          f"in {program._program.capture_s:.3f} s; "
+          f"{time.perf_counter() - t0:.1f} s | {smi}", flush=True)
+    record = {"wall_ms": wall, "eager_wall_ms": eager_wall, "dev_ms": dev,
+              "eager_dev_ms": eager_dev,
+              "ops": None if ops is None else ops / steps,
+              "capture_s": program._program.capture_s,
+              "launches": g_launches}
+    model.free_graphs()
+    return record
+
+
+def phase_train_graphs(smi):
+    """The update and fit graphs at full width: the PPO update of each of
+    UPDATE_TASKS, and the MDN fits of Pendulum's MDNN (a 1000-row chunk,
+    100 updates of 100), of Cartpole's MDRFF (the RFF kernel inside the
+    graph), of the posterior refit (10,000 rows, 500 updates, [128, 128]
+    x 10 over Cartpole's 13 params) and a small full-covariance MDNN."""
+    from bayes_sim_ig_tpu_torch.engine import BayesSim
+    from bayes_sim_ig_tpu_torch.models import MDNN
+    from bayes_sim_ig_tpu_torch.sim import make_env
+    from bayes_sim_ig_tpu_torch.utils.args import load_config
+    records = {t[0]: update_graph_check(*t, smi) for t in UPDATE_TASKS}
+    gen = torch.Generator(device="cuda:0").manual_seed(0)
+    n_up, bs = BayesSim.NUM_GRAD_UPDATES, BayesSim.MINIBATCH_SIZE
+    for task_name, stem, model_class in (("Pendulum", "pendulum", "MDNN"),
+                                         ("Cartpole", "cartpole", "MDRFF")):
+        cfg = load_config(os.path.join(HERE, "bayes_sim_ig_tpu_torch", "cfg",
+                                       f"{stem}.yaml"))
+        cfg["bayessim"]["modelClass"] = model_class
+        task = make_env(task_name, cfg, seed=0, device="cuda:0").task
+        spec = task.params_spec
+        bsim = BayesSim(cfg["bayessim"], task.obs_dim, task.act_dim,
+                        spec.dim, spec.lows, spec.highs, seed=0,
+                        device="cuda:0")
+        model = bsim.model
+        lo = torch.as_tensor(spec.lows, dtype=torch.float32, device="cuda:0")
+        hi = torch.as_tensor(spec.highs, dtype=torch.float32,
+                             device="cuda:0")
+        x = torch.randn(BayesSim.NUM_TRAIN_TRAJ_PER_BATCH,
+                        model.rff.d if model_class == "MDRFF"
+                        else model.input_dim, generator=gen, device="cuda:0")
+        y = lo + (hi - lo) * torch.rand(x.shape[0], spec.dim, generator=gen,
+                                        device="cuda:0")
+        records[f"{task_name} {model_class}"] = fit_graph_check(
+            f"{task_name} {model_class}", model, x, y, n_up, bs, smi)
+        if model_class == "MDRFF":
+            if not records[f"{task_name} {model_class}"]["launches"].get(
+                    "rff_features"):
+                raise AssertionError("the MDRFF fit launched no RFF kernel")
+            # The refit of this model, as BayesSim.predict builds it.
+            refit = MDNN(input_dim=1, output_dim=model.output_dim,
+                         output_lows=model.output_lows,
+                         output_highs=model.output_highs,
+                         n_gaussians=model.n_gaussians,
+                         hidden_layers=(128, 128), lr=model.lr,
+                         activation=model.activation,
+                         full_covariance=model.full_covariance,
+                         device="cuda:0")
+            samples = lo + (hi - lo) * torch.rand(10000, spec.dim,
+                                                  generator=gen,
+                                                  device="cuda:0")
+            records["refit"] = fit_graph_check(
+                "Cartpole refit", refit,
+                torch.zeros(10000, 1, device="cuda:0"), samples, 500, 100,
+                smi)
+    full = MDNN(input_dim=8, output_dim=4, output_lows=np.zeros(4),
+                output_highs=np.ones(4), n_gaussians=5,
+                full_covariance=True, hidden_layers=(32, 32),
+                activation="tanh", lr=1e-3, seed=1, device="cuda:0")
+    records["full covariance"] = fit_graph_check(
+        "full-covariance", full,
+        torch.randn(500, 8, generator=gen, device="cuda:0"),
+        torch.rand(500, 4, generator=gen, device="cuda:0"), 100, 100, smi)
+    return records
 
 
 # The ADR phases of the articulated tasks: (task, config stem, numEnvs, DR
@@ -1682,9 +2120,11 @@ def main():
     tree = phase_tree_kernel()
     half = phase_half_solves()
     phase_step_graphs()
+    phase_train_graphs(smi)
     ant, humanoid, *rest = ADR_PHASES
-    runs = {"Ant": phase_adr(*ant), "Cartpole": phase_adr_cartpole(),
-            "Humanoid": phase_adr(*humanoid)}
+    runs = {"Ant": phase_adr(*ant), "Cartpole": phase_adr_cartpole()}
+    phase_adr_graph_vs_eager()
+    runs["Humanoid"] = phase_adr(*humanoid)
     phase_adr_pendulum()
     for spec in rest:
         runs[spec[0]] = phase_adr(*spec)

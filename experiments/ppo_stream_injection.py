@@ -96,8 +96,8 @@ class _PortShell:
 
 
 def _load_jax_state(tppo, train_state):
-    """Sets the port trainer's params, Adam state and lr to the JAX
-    package's (optax chain state: clip, scale_by_adam, scale)."""
+    """Writes the JAX package's params, Adam state and lr into the port
+    trainer's tensors (optax chain state: clip, scale_by_adam, scale)."""
     tppo.net.load_state_dict(actor_critic_params_from_jax(
         jax.tree_util.tree_map(np.asarray, train_state.params)))
     adam = train_state.opt_state[1]
@@ -106,10 +106,13 @@ def _load_jax_state(tppo, train_state):
                                                              adam.mu))
     nu = actor_critic_params_from_jax(jax.tree_util.tree_map(np.asarray,
                                                              adam.nu))
-    tppo.adam = type(tppo.adam)(
-        count=torch.tensor(float(adam.count)),
-        mu=[mu[k].clone() for k in names], nu=[nu[k].clone() for k in names])
-    tppo.lr = torch.tensor(float(train_state.lr))
+    # In place: the update's captured programs read these tensors.
+    with torch.no_grad():
+        tppo.adam.count.fill_(float(adam.count))
+        for k, m, v in zip(names, tppo.adam.mu, tppo.adam.nu):
+            m.copy_(mu[k])
+            v.copy_(nu[k])
+        tppo.lr.fill_(float(train_state.lr))
 
 
 def paired_run(seed, iters, cfg_env=CFG_ENV, train=None, log=print,

@@ -111,10 +111,9 @@ def test_20_adam_steps_of_mdrff_match_optax():
         upd, state = opt.update(grads, state, params)
         params = optax.apply_updates(params, upd)
 
-    optimizer = torch.optim.Adam(tm.net.parameters(), lr=1e-3)
     xt, yt = torch.from_numpy(x), torch.from_numpy(y)
     for i in range(20):
-        mdn_train_step(tm, optimizer, xt, yt, torch.from_numpy(ids[i]),
+        mdn_train_step(tm, xt, yt, torch.from_numpy(ids[i]),
                        torch.from_numpy(_noise(keys[i], 16)))
     _params_close(tm, params, rtol=1e-4, atol=1e-5)
 

@@ -45,7 +45,8 @@ def test_gae_matches_jax():
 
 def _jax_update(params, traj, last_val, perms, lr):
     """The JAX package's update_from_traj (rl/ppo.py:217-310), written
-    out over its own networks, GAE and optax chain."""
+    out over its own networks, GAE and optax chain; the critic reads
+    traj["cin"] where the trajectory has it (asymmetric)."""
     opt = optax.chain(optax.clip_by_global_norm(MAX_NORM),
                       optax.scale_by_adam(), optax.scale(-1.0))
     obs, act, logp_old, val, rew, done = (jnp.asarray(traj[k]) for k in (
@@ -56,16 +57,18 @@ def _jax_update(params, traj, last_val, perms, lr):
     flat = lambda x: x.reshape((n,) + x.shape[2:])  # noqa: E731
     adv = flat(advs)
     adv = (adv - adv.mean()) / (adv.std() + 1e-8)
-    data = (flat(obs), flat(act), flat(logp_old), flat(val), adv, flat(rets))
+    cin = jnp.asarray(traj.get("cin", traj["obs"]))
+    data = (flat(obs), flat(act), flat(logp_old), flat(val), adv, flat(rets),
+            flat(cin))
 
     def loss_fn(p, mb):
-        o, a, lo, vo, ad, rt = mb
+        o, a, lo, vo, ad, rt, ci = mb
         mean = jnet.policy_mean(p, o, "elu")
         logp = jnet.gaussian_logp(a, mean, p["log_std"])
         ratio = jnp.exp(logp - lo)
         pg = jnp.maximum(-ad * ratio,
                          -ad * jnp.clip(ratio, 1 - CLIP, 1 + CLIP)).mean()
-        v = jnet.value(p, o, "elu")
+        v = jnet.value(p, ci, "elu")
         vc = vo + jnp.clip(v - vo, -CLIP, CLIP)
         vf = 0.5 * jnp.maximum((v - rt) ** 2, (vc - rt) ** 2).mean()
         ent = jnet.entropy(p["log_std"])
@@ -108,7 +111,7 @@ class _Env:
     task, device = _Task(), torch.device("cpu")
 
 
-def _ppo():
+def _ppo(env=None):
     from bayes_sim_ig_tpu_torch.rl.ppo import PPO
     cfg = {"learn": {"cliprange": CLIP, "ent_coef": ENT_COEF,
                      "value_loss_coef": VF_COEF, "nsteps": T,
@@ -117,7 +120,7 @@ def _ppo():
                      "desired_kl": DESIRED_KL, "gamma": GAMMA, "lam": LAM},
            "policy": {"pi_hid_sizes": [16, 16], "vf_hid_sizes": [16, 16],
                       "activation": "elu"}}
-    return PPO(_Env(), cfg, logdir="unused")
+    return PPO(env or _Env(), cfg, logdir="unused")
 
 
 def _traj(params, seed=0):
@@ -219,29 +222,32 @@ def test_non_finite_minibatch_keeps_params_and_adam_state():
     ppo = _ppo()
     params = list(ppo.net.parameters())
     grads = [torch.randn_like(p) for p in params]
-    adam = apply_update(params, grads, torch.tensor(1.0), adam_init(params),
-                        ppo.lr, MAX_NORM)  # one good step: non-zero state
+    adam = adam_init(params)
+    apply_update(params, grads, torch.tensor(1.0), adam, ppo.lr,
+                 MAX_NORM)  # one good step: non-zero state, in place
+    assert float(adam.count) == 1.0
     before = [p.detach().clone() for p in params]
+    kept = AdamState(count=adam.count.clone(),
+                     mu=[m.clone() for m in adam.mu],
+                     nu=[v.clone() for v in adam.nu])
     bad = [g.clone() for g in grads]
     bad[1].view(-1)[0] = float("nan")
-    after = apply_update(params, bad, torch.tensor(1.0), adam, ppo.lr,
-                         MAX_NORM)
+    apply_update(params, bad, torch.tensor(1.0), adam, ppo.lr, MAX_NORM)
     for p, b in zip(params, before):
         assert torch.equal(p.detach(), b)
-    assert isinstance(after, AdamState)
-    assert torch.equal(after.count, adam.count)
-    for x, y in zip(after.mu + after.nu, adam.mu + adam.nu):
+    assert torch.equal(adam.count, kept.count)
+    for x, y in zip(adam.mu + adam.nu, kept.mu + kept.nu):
         assert torch.equal(x, y)
     # A finite gradient with a non-finite loss is skipped too.
-    after = apply_update(params, grads, torch.tensor(float("inf")), adam,
-                         ppo.lr, MAX_NORM)
-    assert torch.equal(after.count, adam.count)
+    apply_update(params, grads, torch.tensor(float("inf")), adam, ppo.lr,
+                 MAX_NORM)
+    assert torch.equal(adam.count, kept.count)
 
     # And through a whole update: every minibatch non-finite.
     params0 = jax.tree_util.tree_leaves(actor_critic_params_to_jax(ppo.net))
     traj = _traj(actor_critic_params_to_jax(ppo.net))
     traj["obs"][:] = np.nan
-    ppo.adam = adam_init(params)
+    ppo._reset_optimizer(ppo.init_lr)
     ppo.update_from_traj({k: torch.from_numpy(v) for k, v in traj.items()},
                          torch.zeros(NENV),
                          torch.stack([torch.randperm(T * NENV)

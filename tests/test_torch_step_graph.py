@@ -27,7 +27,6 @@ import numpy as np
 import pytest
 import torch
 import yaml
-from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax.numpy as jnp
 
@@ -43,6 +42,8 @@ from bayes_sim_ig_tpu_torch.utils.collect import (
     _collect_round, _postprocess_round, collect_step_graph,
     get_collect_policy,
 )
+
+from .torch_task_checks import NoHostTraffic
 
 torch.set_num_threads(1)
 
@@ -161,29 +162,6 @@ def test_frame_counter_is_a_device_int32_that_survives_resets(tmp_path):
 # ------------------------------------------------------------------ #
 # (b) no host sync and no host data in a step
 # ------------------------------------------------------------------ #
-# Ops that stop a capture on a card: a host read of a device value, an
-# index whose size depends on the data, and a tensor made from host data
-# (its host-to-device copy).
-_SYNCING = {"aten._local_scalar_dense.default", "aten.nonzero.default",
-            "aten.lift_fresh.default", "aten.lift_fresh_copy.default"}
-
-
-class _NoHostTraffic(TorchDispatchMode):
-    def __init__(self):
-        super().__init__()
-        self.hits = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        name = str(func)
-        mask_index = name.startswith("aten.index") and any(
-            isinstance(a, (list, tuple)) and any(
-                isinstance(t, torch.Tensor) and t.dtype == torch.bool
-                for t in a) for a in args)
-        if name in _SYNCING or mask_index:
-            self.hits.append(name)
-        return func(*args, **(kwargs or {}))
-
-
 @pytest.mark.parametrize("task_name", [t[0] for t in TASKS])
 def test_a_step_makes_no_host_sync_and_no_host_copy(task_name, tmp_path):
     """The collection step (PPO policy, the config's collection policy,
@@ -202,7 +180,7 @@ def test_a_step_makes_no_host_sync_and_no_host_copy(task_name, tmp_path):
     for g in graphs:
         g.load(state, obs, distr)
         g.body()
-        mode = _NoHostTraffic()
+        mode = NoHostTraffic()
         with mode:
             for _ in range(STEPS - 1):
                 g.body()
