@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import env_draw
+from ..utils.device import resolve_device
 from . import pdf
 
 
@@ -41,11 +42,14 @@ DeviceDistr = Union[DeviceUniform, DeviceMoG]
 
 
 def to_device_distr(distr, lows=None, highs=None,
-                    device="cpu") -> DeviceDistr:
+                    device="cuda") -> DeviceDistr:
     """Converts a host ``pdf.Uniform``/``pdf.Gaussian``/``pdf.MoG`` into its
-    float32 tensor form on ``device``. ``lows``/``highs`` are the param
-    bounds used for clipping (default: the Uniform's own bounds; required
-    for MoG/Gaussian)."""
+    float32 tensor form on ``device`` (the card by default; without one,
+    pass ``device="cpu"``). ``lows``/``highs`` are the param bounds used for
+    clipping (default: the Uniform's own bounds; required for
+    MoG/Gaussian)."""
+    device = resolve_device(device)
+
     def t(v):
         return torch.as_tensor(np.asarray(v), dtype=torch.float32,
                                device=device)

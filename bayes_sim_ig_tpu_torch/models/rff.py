@@ -18,6 +18,7 @@ from torch import nn
 
 from ..distributions.halton import halton_sequence
 from ..ops import rff_features
+from ..utils.device import resolve_device
 
 
 class RFFKernel:
@@ -86,12 +87,14 @@ class RFF(nn.Module):
     """Random Fourier feature map phi: R^d -> R^n_feat.
 
     Make sure the input space is roughly normalized (range within ~one order
-    of magnitude), as in the reference.
+    of magnitude), as in the reference. ``device`` is the card by default;
+    without one, pass ``device="cpu"``.
     """
 
     def __init__(self, n_feat, d, sigma, cos_only=False, quasi_random=True,
-                 kernel="RBF", device="cpu"):
+                 kernel="RBF", device="cuda"):
         super().__init__()
+        device = resolve_device(device)
         self.n_feat = int(n_feat)
         self.d = int(d)
         if isinstance(sigma, (list, tuple, np.ndarray)):

@@ -12,13 +12,17 @@ by a multiply by the adaptive lr): ``torch.nn.utils.clip_grad_norm_`` adds
 reproduces it. A minibatch whose loss or gradients are non-finite leaves
 both the params and the Adam state unchanged.
 
-The update runs as three programs on static buffers (``_Update``): GAE
-and the flat data (``prepare``), one minibatch step (``minibatch``,
-called noptepochs x nminibatches times, its row of the permutations
-chosen by a counter on the device), and the adaptive lr (``finish``).
-Each is a ``Graphed`` (``utils/step_graph.py``): a CUDA graph replay on
-the card, the body on the CPU. The weights, the Adam state and the lr are
-written in place, so the graphs keep reading the trainer's tensors.
+An iteration runs as programs on static buffers, as the JAX package's
+one jitted iteration: the rollout's steps and the value of its last state
+(a ``StepGraph`` and its ``finish``), then the update's three
+(``_Update``): the epochs' permutations, GAE and the flat data
+(``prepare``), one minibatch step (``minibatch``, called noptepochs x
+nminibatches times, its row of the permutations chosen by a counter on
+the device), and the adaptive lr (``finish``). ``act`` is one program per
+row count (``_Act``). Each is a ``Graphed`` (``utils/step_graph.py``): a
+CUDA graph replay on the card, the body on the CPU. The weights, the Adam
+state and the lr are written in place, so the graphs keep reading the
+trainer's tensors.
 """
 
 from __future__ import annotations
@@ -34,7 +38,8 @@ from ..parallel.mesh import gather_envs, global_num_envs, is_main_process
 from ..sim.task import env_step
 from ..utils.convert import (actor_critic_params_from_jax,
                              actor_critic_params_to_jax)
-from ..utils.step_graph import Graphed, StepGraph, distr_key
+from ..utils.step_graph import (Graphed, StepGraph, clone_tree, distr_key,
+                                trajectory)
 from . import networks
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -97,13 +102,15 @@ class _Update:
     """One update's static buffers and programs for a global (T, N)
     batch: the trajectory, ``last_val`` and the permutations, cut into
     (noptepochs x nminibatches, mb) minibatch rows, are copied in
-    (``load``); ``prepare`` computes GAE, the returns and the normalized
-    advantages; each ``minibatch`` call takes row ``t`` (a counter on the
-    device), its loss, gradients and in-place update, and writes
-    ``metrics[t]``; ``finish`` adapts the lr in place and writes the
-    iteration's means into ``summary``."""
+    (``load``), the permutations drawn by ``prepare`` from the trainer's
+    generator instead when ``draw``; ``prepare`` computes GAE, the returns
+    and the normalized advantages; each ``minibatch`` call takes row ``t``
+    (a counter on the device), its loss, gradients and in-place update,
+    and writes ``metrics[t]``; ``finish`` adapts the lr in place and
+    writes the iteration's means into ``summary``."""
 
-    def __init__(self, ppo: "PPO", steps: int, envs: int, asymmetric: bool):
+    def __init__(self, ppo: "PPO", steps: int, envs: int, asymmetric: bool,
+                 draw: bool):
         dev, f32 = ppo.device, torch.float32
         task = ppo.task
         self.ppo = ppo
@@ -133,17 +140,25 @@ class _Update:
         self.data["ret"] = torch.empty(self.n, dtype=f32, device=dev)
         self._t = torch.zeros(1, dtype=torch.int64, device=dev)
         self._host_t = 0
-        self.prepare = Graphed("update", self._prepare, dev)
+        self.draw = draw
+        self.prepare = Graphed("update", self._prepare, dev,
+                               [ppo.gen] if draw else [])
         self.minibatch = Graphed("update", self._minibatch, dev)
         self.finish = Graphed("update", self._finish, dev)
 
-    def load(self, traj, last_val, perms):
-        for k, buf in self.traj.items():
-            buf.copy_(traj[k])
-        self.last_val.copy_(last_val)
+    def _set_rows(self, perms):
         # Minibatch i of epoch e is perms[e, i * mb:(i + 1) * mb].
         e, m, mb = self.epochs, self.minibatches, self.mb
         self._rows.view(e, m, mb).copy_(perms[:, :m * mb].view(e, m, mb))
+
+    def load(self, traj, last_val, perms=None):
+        """Copies the iteration's trajectory, ``last_val`` and, unless the
+        update draws them, the permutations into the buffers."""
+        for k, buf in self.traj.items():
+            buf.copy_(traj[k])
+        self.last_val.copy_(last_val)
+        if not self.draw:
+            self._set_rows(perms)
         self._t.zero_()
         self._host_t = 0
 
@@ -159,6 +174,12 @@ class _Update:
     @torch.no_grad()
     def _prepare(self):
         ppo, tr = self.ppo, self.traj
+        if self.draw:
+            # The epochs' permutations, drawn first: the trainer's
+            # generator draws nothing between the rollout and here.
+            self._set_rows(torch.stack([
+                torch.randperm(self.n, generator=ppo.gen, device=ppo.device)
+                for _ in range(self.epochs)]))
         advs = gae_advantages(tr["val"], tr["rew"], tr["done"],
                               self.last_val, ppo.gamma, ppo.lam)
         adv = advs.reshape(self.n)
@@ -197,6 +218,41 @@ class _Update:
     def free(self):
         for program in (self.prepare, self.minibatch, self.finish):
             program.free()
+
+
+class _Act:
+    """``PPO.act`` on static buffers for ``rows`` observations, as one
+    program (phase "act"): the JAX package's ``_act_fn`` (an action drawn
+    from the trainer's generator, and its log-probability) or, when
+    ``deterministic``, its ``_mean_fn``. Returns copies."""
+
+    def __init__(self, ppo: "PPO", rows: int, deterministic: bool):
+        dev, task = ppo.device, ppo.task
+        self._ppo = ppo
+        self.obs = torch.zeros(rows, task.obs_dim, device=dev)
+        self.act = torch.empty(rows, task.act_dim, device=dev)
+        self.logp = None if deterministic else torch.empty(rows, device=dev)
+        self._program = Graphed("act", self._run, dev,
+                                [] if deterministic else [ppo.gen])
+
+    def _run(self):
+        with torch.no_grad():
+            net = self._ppo.net
+            if self.logp is None:
+                self.act.copy_(networks.policy_mean(net, self.obs))
+                return
+            act, logp = networks.sample_action(net, self.obs, self._ppo.gen)
+            self.act.copy_(act)
+            self.logp.copy_(logp)
+
+    def __call__(self, obs):
+        self.obs.copy_(obs)
+        self._program()
+        return (self.act.clone(),
+                None if self.logp is None else self.logp.clone())
+
+    def free(self):
+        self._program.free()
 
 
 class _ActorCriticHandle:
@@ -278,6 +334,7 @@ class PPO:
             self.adam = adam_init(self.params)
             self.lr = torch.tensor(self.init_lr, device=self.device)
             self._updates: Dict[tuple, _Update] = {}
+            self._acts: Dict[tuple, _Act] = {}
         else:
             with torch.no_grad():
                 for p, q in zip(self.net.parameters(), net.parameters()):
@@ -304,13 +361,14 @@ class PPO:
         """(net, obs, gen) -> stochastic action: the collection policy."""
         return networks.sample_action(net, obs, gen)[0]
 
-    @torch.no_grad()
     def act(self, obs, deterministic=False):
         """Policy action (unsquashed Gaussian, clipped by the env); returns
-        (action, log_prob)."""
-        if deterministic:
-            return networks.policy_mean(self.net, obs), None
-        return networks.sample_action(self.net, obs, self.gen)
+        (action, log_prob), log_prob None when ``deterministic`` (the
+        mean). One program for each row count (``_Act``)."""
+        key = (obs.shape[0], bool(deterministic))
+        if key not in self._acts:
+            self._acts[key] = _Act(self, *key)
+        return self._acts[key](obs)
 
     # ------------------------------------------------------------------ #
     def _critic_input(self, env_state, obs):
@@ -324,24 +382,31 @@ class PPO:
     @torch.no_grad()
     def rollout(self, distr, env_state, obs):
         """``nsteps`` steps of all envs under the current policy; returns
-        (env_state, obs, traj, last_val) with traj a dict of (T, N, ...)
-        tensors (with "cin", the critic's inputs, when asymmetric). The
-        steps run the rollout's ``StepGraph`` (a CUDA graph replayed a
-        step on the card): actions drawn from this trainer's generator,
-        the env's draws from the env's."""
+        (env_state, obs, traj, last_val), copies of the rollout's buffers,
+        with traj a dict of (T, N, ...) tensors (with "cin", the critic's
+        inputs, when asymmetric)."""
+        graph = self._rollout(distr, env_state, obs)
+        env_state, obs = graph.snapshot()
+        return (env_state, obs, {k: v.clone() for k, v in graph.traj.items()},
+                graph.final["last_val"].clone())
+
+    def _rollout(self, distr, env_state, obs) -> StepGraph:
+        """The rollout's programs (CUDA graph replays on the card): the
+        ``nsteps`` steps of its ``StepGraph`` (actions drawn from this
+        trainer's generator, the env's draws from the env's), then the
+        value of the last state (``final["last_val"]``). Returns the graph,
+        whose buffers hold the rollout until the next one."""
         graph = self.rollout_graph(distr, env_state, obs)
         graph.load(env_state, obs, distr)
         for _ in range(self.nsteps):
             graph.step()
-        traj = {k: v.clone() for k, v in graph.traj.items()}
-        env_state, obs = graph.snapshot()
-        last_val = networks.value(self.net,
-                                  self._critic_input(env_state, obs))
-        return env_state, obs, traj, last_val
+        graph.finish()
+        return graph
 
     def rollout_graph(self, distr, env_state, obs) -> StepGraph:
-        """The rollout's step on static buffers, cached on the env by what
-        it reads; ``env_state`` and ``obs`` give the buffers' shapes."""
+        """The rollout's step and last value on static buffers, cached on
+        the env by what they read; ``env_state`` and ``obs`` give the
+        buffers' shapes."""
         env_gen = self.vec_env.gen
         key = ("rollout", self.task.max_episode_length, self.net, self.gen,
                env_gen, self.asymmetric, distr_key(distr))
@@ -367,9 +432,15 @@ class PPO:
                    "rew": ((n,), f32), "done": ((n,), f32)}
         if self.asymmetric:
             outputs["cin"] = ((n, self._state_dim), f32)
+
+        def last_val(state, obs):
+            return {"last_val": networks.value(self.net,
+                                               self._critic_input(state, obs))}
         graph = self.vec_env.step_graphs[key] = StepGraph(
-            "rollout", body, env_state, obs, distr, self.nsteps, outputs,
-            [self.gen, env_gen])
+            "rollout", body, env_state, obs, distr,
+            trajectory(self.nsteps, outputs, self.device),
+            [self.gen, env_gen], finish=last_val,
+            final={"last_val": ((n,), f32)})
         return graph
 
     def loss_fn(self, batch):
@@ -397,13 +468,15 @@ class PPO:
         approx_kl = ((ratio - 1.0) - log_ratio).mean()
         return total, pg_loss, vf_loss, approx_kl
 
-    def update_from_traj(self, traj, last_val, perms):
+    def update_from_traj(self, traj, last_val, perms=None):
         """GAE, advantage normalization, then one epoch per row of
-        ``perms`` ((noptepochs, nsteps * num_envs) permutations), each cut
-        into ``nminibatches`` minibatches. Updates the policy, the Adam
-        state and the lr in place; returns the iteration's metrics. Runs
-        ``update_program``'s programs (CUDA graph replays on the card)."""
-        update = self.update_program(traj, last_val)
+        ``perms`` ((noptepochs, nsteps * num_envs) permutations; None:
+        drawn from the trainer's generator by the update's first program),
+        each cut into ``nminibatches`` minibatches. Updates the policy, the
+        Adam state and the lr in place; returns the iteration's metrics.
+        Runs ``update_program``'s programs (CUDA graph replays on the
+        card)."""
+        update = self.update_program(traj, last_val, draw=perms is None)
         update.load(traj, last_val, perms)
         update.prepare()
         for _ in range(self.noptepochs * self.nminibatches):
@@ -413,33 +486,35 @@ class PPO:
         return dict(zip(("loss", "pg_loss", "vf_loss", "approx_kl", "lr",
                          "mean_reward", "mean_episode_done"), summary))
 
-    def update_program(self, traj, last_val) -> _Update:
+    def update_program(self, traj, last_val, draw: bool = False) -> _Update:
         """The update's buffers and programs for this global batch shape,
-        cached until ``free_update_graphs``."""
+        drawing the permutations or not, cached until
+        ``free_update_graphs``."""
         steps, envs = traj["val"].shape
-        key = (steps, envs, "cin" in traj)
+        key = (steps, envs, "cin" in traj, draw)
         if key not in self._updates:
-            self._updates[key] = _Update(self, steps, envs, "cin" in traj)
+            self._updates[key] = _Update(self, *key)
         return self._updates[key]
 
     def free_update_graphs(self):
-        """Drops the update's captured programs and their memory pools."""
-        for update in self._updates.values():
-            update.free()
+        """Drops the update's and ``act``'s captured programs and their
+        memory pools."""
+        for program in [*self._updates.values(), *self._acts.values()]:
+            program.free()
         self._updates.clear()
+        self._acts.clear()
 
     def train_iteration(self, distr, env_state, obs):
         """Rollout of this rank's envs, all-gathered into the global
-        (T, N) batch, then the update, replicated on every rank."""
-        env_state, obs, traj, last_val = self.rollout(distr, env_state, obs)
-        traj = gather_envs(traj, dim=1)
-        last_val = gather_envs(last_val)
-        n = self.nsteps * last_val.shape[0]
-        perms = torch.stack([
-            torch.randperm(n, generator=self.gen, device=self.device)
-            for _ in range(self.noptepochs)])
-        metrics = self.update_from_traj(traj, last_val, perms)
-        return env_state, obs, metrics
+        (T, N) batch, then the update (its permutations drawn by its first
+        program), replicated on every rank. Returns the rollout's state and
+        observation buffers, which its next call overwrites, and the
+        metrics."""
+        graph = self._rollout(distr, env_state, obs)
+        metrics = self.update_from_traj(
+            gather_envs(graph.traj, dim=1),
+            gather_envs(graph.final["last_val"]))
+        return graph.state, graph.obs, metrics
 
     # ------------------------------------------------------------------ #
     def run(self, num_learning_iterations, log_interval=1):
@@ -469,7 +544,7 @@ class PPO:
             if is_main_process() and (it % self.save_interval == 0
                                       or it == num_learning_iterations):
                 self.save(os.path.join(self.logdir, f"model_{it}.ckpt"))
-        self.vec_env.state = env_state  # hand the env back
+        self.vec_env.state = clone_tree(env_state)  # hand the env back
         return self
 
     # ------------------------------------------------------------------ #

@@ -24,6 +24,8 @@ import torch
 from ..distributions.device import DeviceDistr, sample_distr
 from ..dr.noise import NoiseConfig, apply_noise
 from ..parallel.mesh import env_draw
+from ..utils.step_graph import (Graphed, StepGraph, clone_tree, distr_key,
+                                tree_leaves, trajectory)
 
 CLIP_OBSERVATIONS = 100.0
 CLIP_ACTIONS = 1.0
@@ -123,8 +125,14 @@ class EnvState(NamedTuple):
 def env_full_reset(task: Task, distr: DeviceDistr, gen: torch.Generator,
                    frame_count=0):
     """Resets and re-randomizes ALL envs. Returns (EnvState, obs).
-    ``frame_count`` (an int or a () tensor) starts the frame counter."""
+    ``frame_count`` (an int or a () tensor) starts the frame counter: a
+    device fill or a device copy, never a copy from host data, so that a
+    captured reset holds it."""
     n, dev = task.num_envs, task.device
+    if isinstance(frame_count, torch.Tensor):
+        frame = frame_count.to(dev, torch.int32, copy=True)
+    else:
+        frame = torch.full((), frame_count, dtype=torch.int32, device=dev)
     params = sample_distr(distr, gen, n)
     task_state = task.init_state(gen, params)
     state = EnvState(
@@ -132,8 +140,7 @@ def env_full_reset(task: Task, distr: DeviceDistr, gen: torch.Generator,
         params=params,
         progress=torch.zeros(n, dtype=torch.int32, device=dev),
         reset_buf=torch.zeros(n, dtype=torch.int32, device=dev),
-        frame_count=torch.as_tensor(frame_count, dtype=torch.int32,
-                                    device=dev).clone(),
+        frame_count=frame,
         obs_corr=env_draw(torch.randn, (n, task.obs_dim), gen, device=dev),
         act_corr=env_draw(torch.randn, (n, task.act_dim), gen, device=dev))
     obs = torch.clamp(task.observe(state.task_state, state.params),
@@ -210,6 +217,85 @@ def env_step(task: Task, distr: DeviceDistr, state: EnvState,
     return new_state, obs, rew, reset_buf
 
 
+class EnvReset:
+    """``env_full_reset`` as one program on static buffers (phase "reset"
+    in ``utils/step_graph.STATS``): the JAX package's ``_reset_jit`` and
+    the reset that opens its collection round. It reads the distribution's
+    values and the first frame from buffers, draws from ``gen`` and writes
+    the ``state`` and ``obs`` buffers. Cached on the env by generator and
+    distribution kind (``VecEnv.reset_program``), so that a collection
+    round of the surrogate-real distribution replays the evaluation's."""
+
+    def __init__(self, task: Task, distr: DeviceDistr, gen: torch.Generator):
+        dev = task.device
+        # The buffers' shapes, from a reset that draws from a generator of
+        # its own: ``gen`` is untouched.
+        self.state, self.obs = env_full_reset(
+            task, distr, torch.Generator(device=dev).manual_seed(0))
+        self.distr = clone_tree(distr)
+        self.frame = torch.zeros((), dtype=torch.int32, device=dev)
+        self._task, self._gen = task, gen
+        self._program = Graphed("reset", self._run, dev, [gen])
+
+    def _run(self):
+        with torch.no_grad():
+            out = env_full_reset(self._task, self.distr, self._gen,
+                                 self.frame)
+            for dst, src in zip(tree_leaves((self.state, self.obs)),
+                                tree_leaves(out)):
+                dst.copy_(src)
+
+    def __call__(self, distr: DeviceDistr, frame=None):
+        """Resets every env from ``distr``'s values, the frame counter at 0
+        or at the () tensor ``frame``; returns the (state, obs) buffers,
+        which the next call overwrites."""
+        for dst, src in zip(tree_leaves(self.distr), tree_leaves(distr)):
+            dst.copy_(src)
+        if frame is None:
+            self.frame.zero_()
+        else:
+            self.frame.copy_(frame)
+        self._program()
+        return self.state, self.obs
+
+    def free(self):
+        self._program.free()
+
+
+class EnvStep:
+    """``env_step`` as one program on static buffers (phase "step"): the
+    JAX package's ``_step_jit``. ``step(state, distr, actions)`` copies its
+    inputs into the buffers, replays the step and returns copies, so that
+    what a caller holds never changes under it, as JAX's fresh arrays
+    never do."""
+
+    def __init__(self, task: Task, distr: DeviceDistr, state: EnvState,
+                 gen: torch.Generator, max_episode_length: int):
+        n, dev = task.num_envs, task.device
+        self._act = torch.zeros(n, task.act_dim, device=dev)
+
+        def body(state, obs, distr):
+            state, obs, rew, done = env_step(task, distr, state, self._act,
+                                             gen, max_episode_length)
+            return state, obs, {"rew": rew, "done": done}
+        self._graph = StepGraph(
+            "step", body, state, torch.zeros(n, task.obs_dim, device=dev),
+            distr, trajectory(1, {"rew": ((n,), torch.float32),
+                                  "done": ((n,), torch.int32)}, dev), [gen])
+
+    def __call__(self, state: EnvState, distr: DeviceDistr, actions):
+        """(EnvState, obs, rew, done) after one step from ``state``."""
+        g = self._graph
+        g.load(state, g.obs, distr)
+        self._act.copy_(actions)
+        g.step()
+        state, obs = g.snapshot()
+        return state, obs, g.traj["rew"][0].clone(), g.traj["done"][0].clone()
+
+    def free(self):
+        self._graph.free()
+
+
 class ParamsGeneratorFacade:
     """Reference-compatible view of a task's param spec (names/lows/highs/
     defaults/skip_ids + set_distr + sample). ``set_distr`` accepts host pdf
@@ -241,10 +327,13 @@ class ParamsGeneratorFacade:
 
 class VecEnv:
     """Stateful wrapper over the env functions, exposing the surface the
-    reference code uses (``reset()``, ``step(act)``). Its generator drives
-    the env's own draws. ``step_graphs`` holds the captured steps of its
-    collection rounds and PPO rollouts (``utils/step_graph.py``), keyed by
-    what each reads; ``free_step_graphs`` releases them."""
+    reference code uses (``reset()``, ``step(act)``), each one program
+    (``EnvReset``, ``EnvStep``: a CUDA graph replay on the card). Its
+    generator drives the env's own draws. ``step_graphs`` holds the
+    programs of the env: these two, the collection rounds' and the PPO
+    rollouts' (``utils/step_graph.py``), keyed by what each reads;
+    ``free_step_graphs`` releases them. ``state`` is the env's own: the
+    programs' buffers are copied into it and out of it."""
 
     def __init__(self, task: Task, seed: int = 0):
         self.task = task
@@ -278,17 +367,31 @@ class VecEnv:
         """Ground-truth params of each env's current episode."""
         return self.state.params
 
+    def reset_program(self, gen: torch.Generator,
+                      distr: DeviceDistr) -> EnvReset:
+        """The reset program that draws from ``gen``, for ``distr``'s kind
+        and shapes."""
+        key = ("reset", gen, distr_key(distr))
+        if key not in self.step_graphs:
+            self.step_graphs[key] = EnvReset(self.task, distr, gen)
+        return self.step_graphs[key]
+
     def reset(self):
         assert self._distr is not None, "call set_distr first"
-        frame = self.state.frame_count if self.state is not None else 0
-        self.state, obs = env_full_reset(self.task, self._distr, self.gen,
-                                         frame)
-        return obs
+        state, obs = self.reset_program(self.gen, self._distr)(
+            self._distr, None if self.state is None
+            else self.state.frame_count)
+        self.state = clone_tree(state)
+        return obs.clone()
 
     def step(self, actions):
-        self.state, obs, rew, done = env_step(
-            self.task, self._distr, self.state, actions, self.gen,
-            self.max_episode_length)
+        key = ("step", self.max_episode_length, distr_key(self._distr))
+        if key not in self.step_graphs:
+            self.step_graphs[key] = EnvStep(self.task, self._distr,
+                                            self.state, self.gen,
+                                            self.max_episode_length)
+        self.state, obs, rew, done = self.step_graphs[key](
+            self.state, self._distr, actions)
         return obs, rew, done, {}
 
     def get_state(self):

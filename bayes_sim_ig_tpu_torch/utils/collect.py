@@ -10,6 +10,9 @@ Port of ``bayes_sim_ig_tpu/utils/collect.py``:
   * ground-truth param labels are the params sampled at the round's reset;
   * rounds repeat until ``num_trajs`` episodes are banked.
 
+A round runs as programs on static buffers (``_collect_round``): the
+reset, the steps and the extraction, each a CUDA graph replay on the card.
+
 Trajectories are stored in float32. Returns (params, states, actions,
 rewards, imgs) with states (N, L, S), actions (N, L, A),
 L = max_episode_length.
@@ -24,8 +27,8 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import env_draw, gather_envs, global_num_envs
-from ..sim.task import env_full_reset, env_step
-from .step_graph import StepGraph, distr_key
+from ..sim.task import env_step
+from .step_graph import Graphed, StepGraph, distr_key, trajectory
 
 
 # --------------------------------------------------------------------- #
@@ -119,13 +122,57 @@ def _postprocess_round(obs0, obs_seq, act_seq, rew_seq, done_seq, labels):
             acts.transpose(0, 1).contiguous(), rewards)
 
 
+class CollectRound:
+    """What a collection round of ``steps`` steps keeps between its
+    programs, shared by the step graphs of every policy and distribution
+    that collect rounds of that length: the trajectory buffers the steps
+    write, the round's first observations and labels (copied from the
+    reset's buffers), and the episode extraction (``_postprocess_round``
+    as one program, phase "extract") into ``out``: (labels, states,
+    actions, rewards). Cached on the env (``collect_round``)."""
+
+    def __init__(self, task, steps: int, params: torch.Tensor):
+        n, dev, f32 = task.num_envs, task.device, torch.float32
+        self.traj = trajectory(steps, {
+            "obs": ((n, task.obs_dim), f32), "act": ((n, task.act_dim), f32),
+            "rew": ((n,), f32), "done": ((n,), torch.int32)}, dev)
+        self.obs0 = torch.empty(n, task.obs_dim, device=dev)
+        self.labels = torch.empty_like(params)
+        self.out = (torch.empty_like(params),
+                    torch.empty(n, steps + 1, task.obs_dim, device=dev),
+                    torch.empty(n, steps + 1, task.act_dim, device=dev),
+                    torch.empty(n, device=dev))
+        self.extract = Graphed("extract", self._extract, dev)
+
+    def _extract(self):
+        with torch.no_grad():
+            tr = self.traj
+            out = _postprocess_round(self.obs0, tr["obs"], tr["act"],
+                                     tr["rew"], tr["done"], self.labels)
+            for dst, src in zip(self.out, out):
+                dst.copy_(src)
+
+    def free(self):
+        self.extract.free()
+
+
+def collect_round(vec_env, steps: int, params: torch.Tensor) -> CollectRound:
+    """The env's ``CollectRound`` of ``steps`` steps; ``params`` gives the
+    labels' shape."""
+    key = ("round", steps)
+    if key not in vec_env.step_graphs:
+        vec_env.step_graphs[key] = CollectRound(vec_env.task, steps, params)
+    return vec_env.step_graphs[key]
+
+
 def collect_step_graph(vec_env, policy_apply, collect_policy,
                        max_episode_length, policy_params, distr, gen,
                        env_state, obs, steps=None) -> StepGraph:
     """The collection step (policy, collection policy, ``env_step``) on
-    static buffers, cached on ``vec_env`` by what it reads; its trajectory
-    buffers hold ``steps`` steps (default ``max_episode_length - 1``, a
-    round). ``env_state`` and ``obs`` give the buffers' shapes."""
+    static buffers, cached on ``vec_env`` by what it reads; it writes the
+    trajectory buffers of the env's ``CollectRound`` of ``steps`` steps
+    (default ``max_episode_length - 1``, a round). ``env_state`` and
+    ``obs`` give the buffers' shapes."""
     steps = max_episode_length - 1 if steps is None else steps
     key = ("collect", max_episode_length, steps, policy_apply,
            collect_policy, policy_params, gen, distr_key(distr))
@@ -140,37 +187,39 @@ def collect_step_graph(vec_env, policy_apply, collect_policy,
                                          max_episode_length)
         return state, obs, {"obs": obs, "act": act, "rew": rew,
                             "done": done}
-    n = task.num_envs
     graph = vec_env.step_graphs[key] = StepGraph(
-        "collect", body, env_state, obs, distr, steps,
-        {"obs": ((n, task.obs_dim), torch.float32),
-         "act": ((n, task.act_dim), torch.float32),
-         "rew": ((n,), torch.float32), "done": ((n,), torch.int32)},
-        [gen])
+        "collect", body, env_state, obs, distr,
+        collect_round(vec_env, steps, env_state.params).traj, [gen])
     return graph
 
 
 @torch.no_grad()
 def _collect_round(vec_env, policy_apply, collect_policy, max_episode_length,
                    policy_params, distr, gen):
-    """One synchronized round; returns padded episodes for every env.
+    """One synchronized round; returns padded episodes for every env, as
+    copies of the round's buffers.
 
     policy_apply: (policy_params, obs, gen) -> action (the RL policy).
     collect_policy: (act, gen) -> act transform.
-    The reset runs eagerly; the ``max_episode_length - 1`` steps run the
-    round's ``StepGraph`` (on the card, a CUDA graph replayed a step).
+    Three kinds of programs (on the card, CUDA graph replays), with no host
+    sync from the reset to the copies: the reset (``VecEnv.reset_program``),
+    the ``max_episode_length - 1`` steps of the round's ``StepGraph`` and
+    the extraction of the round's ``CollectRound``.
     """
-    env_state, obs0 = env_full_reset(vec_env.task, distr, gen)
-    labels = env_state.params  # ground-truth params for this round
+    env_state, obs0 = vec_env.reset_program(gen, distr)(distr)
+    rnd = collect_round(vec_env, max_episode_length - 1, env_state.params)
+    rnd.obs0.copy_(obs0)
+    # The labels: the params drawn at the reset. A step redraws an env's
+    # params when it resets inside the round.
+    rnd.labels.copy_(env_state.params)
     graph = collect_step_graph(vec_env, policy_apply, collect_policy,
                                max_episode_length, policy_params, distr,
                                gen, env_state, obs0)
     graph.load(env_state, obs0, distr)
     for _ in range(max_episode_length - 1):
         graph.step()
-    tr = graph.traj
-    return _postprocess_round(obs0, tr["obs"], tr["act"], tr["rew"],
-                              tr["done"], labels)
+    rnd.extract()
+    return tuple(x.clone() for x in rnd.out)
 
 
 def collect_trajectories(

@@ -1,12 +1,18 @@
-"""CUDA graphs of the port's compiled programs: one env step of a
-collection round or a PPO rollout (``StepGraph``), and the PPO update and
-the MDN fit (``rl/ppo.py``, ``models/mdnn.py``), which all capture their
-bodies through ``Graphed``.
+"""CUDA graphs of the port's compiled programs, which all capture their
+bodies through ``Graphed``: one env step of a collection round or a PPO
+rollout (``StepGraph``, with the rollout's last value as its ``finish``),
+the collection round's reset and episode extraction
+(``sim/task.py::EnvReset``, ``utils/collect.py::CollectRound``),
+``VecEnv.reset`` and ``VecEnv.step`` (``EnvReset``, ``EnvStep``),
+``PPO.act``, the PPO update (its permutations drawn by its first program)
+and the MDN fit (``rl/ppo.py``, ``models/mdnn.py``).
 
-The JAX package runs each of these as one jitted program: the collection
-round (``utils/collect.py::_collect_round``) and the rollout as a
-``lax.scan`` of env steps, the PPO update as GAE's and the epochs'
-``lax.scan``s, the MDN fit as a ``lax.scan`` of Adam steps. An eager torch
+The JAX package runs each of these inside a jitted program: the collection
+round (``utils/collect.py::_collect_round``: the reset, a ``lax.scan`` of
+env steps, the extraction), the PPO iteration (the rollout's ``lax.scan``,
+GAE's and the epochs' ``lax.scan``s, the permutations drawn from its key),
+``VecEnv``'s ``_reset_jit`` and ``_step_jit``, ``PPO``'s ``_act_fn`` and
+``_mean_fn``, the MDN fit as a ``lax.scan`` of Adam steps. An eager torch
 step is hundreds to thousands of small launches, and the host, not the
 card, then sets its pace. Here each loop's body works on static buffers,
 with its step counters on the device. On a CUDA device the first call of
@@ -34,15 +40,16 @@ from __future__ import annotations
 
 import time
 import weakref
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from ..ops.launch import launch_counts, set_launch_counts
 
 # Captures, replays and capture seconds of this process, by phase
-# ("collect", "rollout", "update", "fit"); read and reset by callers that
-# must show a run went through the graphs.
+# ("reset", "collect", "extract", "rollout", "update", "fit", "step",
+# "act"); read and reset by callers that must show a run went through the
+# graphs.
 STATS: Dict[str, Dict[str, float]] = {}
 
 # Every Graphed of this process, held weakly: live_graphs() reads the
@@ -123,18 +130,18 @@ class Graphed:
             self._graph = None
 
 
-def _leaves(tree) -> list:
+def tree_leaves(tree) -> list:
     """The tensors of nested (named) tuples, in order."""
     if isinstance(tree, torch.Tensor):
         return [tree]
-    return [x for sub in tree for x in _leaves(sub)]
+    return [x for sub in tree for x in tree_leaves(sub)]
 
 
-def _clone(tree):
+def clone_tree(tree):
     """A copy of nested named tuples of tensors."""
     if isinstance(tree, torch.Tensor):
         return tree.clone()
-    return type(tree)(*[_clone(x) for x in tree])
+    return type(tree)(*[clone_tree(x) for x in tree])
 
 
 def distr_key(distr) -> tuple:
@@ -143,31 +150,47 @@ def distr_key(distr) -> tuple:
     return (type(distr).__name__,) + tuple(tuple(x.shape) for x in distr)
 
 
+def trajectory(steps: int, outputs: Dict[str, Tuple[tuple, torch.dtype]],
+               device) -> Dict[str, torch.Tensor]:
+    """Empty (steps, *shape) buffers of ``outputs``' {name: (shape,
+    dtype)}."""
+    return {k: torch.empty((int(steps),) + tuple(shape), dtype=dtype,
+                           device=device)
+            for k, (shape, dtype) in outputs.items()}
+
+
 class StepGraph:
     """The step ``body(state, obs, distr) -> (state, obs, outputs)`` of
     ``phase`` (counted in ``STATS``) on static buffers: ``state`` an
     ``EnvState``, ``obs`` the observations, ``distr`` a device
     distribution, and ``outputs`` a {name: tensor} dict of the step's
-    trajectory entries, whose (shape, dtype) ``outputs`` gives here.
-    ``steps`` is the trajectory buffers' length; ``generators`` every
-    generator the body draws from."""
+    trajectory entries, each written into its row of ``traj`` (the
+    caller's (steps, ...) buffers, which graphs of one shape may share).
+    ``generators`` is every generator the body draws from. ``finish(state,
+    obs) -> {name: tensor}``, if given, is a second program (``finish()``)
+    run after the last step, written into ``final`` (buffers of its
+    {name: (shape, dtype)})."""
 
     def __init__(self, phase: str, body: Callable, state, obs: torch.Tensor,
-                 distr, steps: int,
-                 outputs: Dict[str, Tuple[tuple, torch.dtype]],
-                 generators: Sequence[torch.Generator]):
+                 distr, traj: Dict[str, torch.Tensor],
+                 generators: Sequence[torch.Generator],
+                 finish: Optional[Callable] = None,
+                 final: Optional[Dict[str, Tuple[tuple, torch.dtype]]] = None):
         self.device = obs.device
         self._body = body
-        self.state = _clone(state)
+        self.state = clone_tree(state)
         self.obs = obs.clone()
-        self.distr = _clone(distr)
-        self.steps = int(steps)
-        self.traj = {k: torch.empty((self.steps,) + tuple(shape),
-                                    dtype=dtype, device=self.device)
-                     for k, (shape, dtype) in outputs.items()}
+        self.distr = clone_tree(distr)
+        self.traj = traj
+        self.steps = next(iter(traj.values())).shape[0]
         self._t = torch.zeros(1, dtype=torch.int64, device=self.device)
         self._host_t = 0
         self._program = Graphed(phase, self._run, self.device, generators)
+        self._finish = finish
+        self.final = {k: torch.empty(shape, dtype=dtype, device=self.device)
+                      for k, (shape, dtype) in (final or {}).items()}
+        self._final_program = (None if finish is None else
+                               Graphed(phase, self._run_finish, self.device))
 
     @property
     def replays(self) -> int:
@@ -181,8 +204,8 @@ class StepGraph:
         """Copies a round's first state, its observations and the
         distribution's values into the buffers; the trajectory starts
         again at step 0."""
-        for dst, src in zip(_leaves((self.state, self.obs, self.distr)),
-                            _leaves((state, obs, distr))):
+        for dst, src in zip(tree_leaves((self.state, self.obs, self.distr)),
+                            tree_leaves((state, obs, distr))):
             dst.copy_(src)
         self._t.zero_()
         self._host_t = 0
@@ -190,17 +213,22 @@ class StepGraph:
     def snapshot(self):
         """(EnvState, obs): copies of the state and observation buffers,
         which the next step overwrites."""
-        return _clone(self.state), self.obs.clone()
+        return clone_tree(self.state), self.obs.clone()
 
     def _run(self):
         with torch.no_grad():
             state, obs, outs = self._body(self.state, self.obs, self.distr)
             for k, v in outs.items():
                 self.traj[k].index_copy_(0, self._t, v.unsqueeze(0))
-            for dst, src in zip(_leaves((self.state, self.obs)),
-                                _leaves((state, obs))):
+            for dst, src in zip(tree_leaves((self.state, self.obs)),
+                                tree_leaves((state, obs))):
                 dst.copy_(src)
             self._t.add_(1)
+
+    def _run_finish(self):
+        with torch.no_grad():
+            for k, v in self._finish(self.state, self.obs).items():
+                self.final[k].copy_(v)
 
     def _advance(self):
         if self._host_t >= self.steps:
@@ -219,6 +247,12 @@ class StepGraph:
         self._advance()
         self._program()
 
+    def finish(self):
+        """The ``finish`` program on the buffers after the last step."""
+        self._final_program()
+
     def free(self):
-        """Drops the captured step and its memory pool."""
+        """Drops the captured programs and their memory pools."""
         self._program.free()
+        if self._final_program is not None:
+            self._final_program.free()

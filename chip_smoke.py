@@ -69,19 +69,28 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      for bit equal, the replays' kernel launches equal the body's, one
      eager step under sync debug mode "error" (no host sync, no
      host-to-device copy); prints the wall ms per step graphed and
-     eager, the graphed step's device ms and the capture seconds;
+     eager, the graphed step's device ms and the capture seconds; then
+     the programs around the steps against their eager bodies, bit for
+     bit with equal launches: one whole collection round (its reset,
+     trainTrajLen steps and episode extraction: labels, states, actions,
+     rewards, generator), VecEnv.reset and 20 VecEnv.step calls (every
+     obs, reward, done, state leaf, the generator), PPO.act stochastic
+     and deterministic; with the round's wall ms, the VecEnv reset's and
+     step's wall ms graphed and eager, the step's device ms, device
+     operations and busy share, and the captures' seconds;
   4a. the update and fit graphs: the PPO update (rl/ppo.py: prepare,
-     noptepochs x nminibatches minibatch steps, finish) of Ant (1024 x 16
+     which draws the epochs' permutations, noptepochs x nminibatches
+     minibatch steps, finish) of Ant (1024 x 16
      rows, 4 x 4), Humanoid (4096 x 32, 5 x 4), ShadowHand with the
      asymmetric critic (1024 x 8, 5 x 4) and Pendulum (100 x 64, 8 x 8)
      on a rollout at full width, and the MDN fit (models/mdnn.py) of
      Pendulum's MDNN (a 1000-row chunk, 100 updates of 100), Cartpole's
      MDRFF (the RFF kernel inside the graph), the posterior refit (10,000
      rows, 500 updates) and a small full-covariance MDNN: replays against
-     the eager bodies bit for bit (params, Adam state, lr, metrics,
-     losses, generators) with equal launches; wall ms per update graphed
-     and eager, device ms, operations, busy share and capture seconds,
-     with the card's name and power limit;
+     the eager bodies bit for bit (params, Adam state, lr, permutations,
+     metrics, losses, generators) with equal launches; wall ms per update
+     graphed and eager, device ms, operations, busy share and capture
+     seconds, with the card's name and power limit;
   4b. the ADR loop on Ant at full width (1024 envs, 17 params,
      trainTrajLen 50, summary_corrdiff, MDNN [128, 128] x 10 components,
      PPO [256, 128, 64] with nsteps 16) for 2 ADR iterations through
@@ -96,7 +105,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   5a. one Cartpole + MDRFF ADR iteration from seed 0 with every graph and
      with every graph bound to its eager body by this script: every
      collected batch, the PPO and MDN params, the RFF frequencies and the
-     posterior compared bit for bit (the first differing array printed);
+     posterior compared bit for bit (the first differing array printed),
+     with the captures and replays of each program by phase;
   6. the ADR loop on Humanoid at full width (4096 envs, 37 params,
      trainTrajLen 50, summary_corrdiff, MDNN [128, 128] x 10 components,
      PPO [400, 200, 100] elu with nsteps 32) for 2 ADR iterations
@@ -110,15 +120,15 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      each): checks the SPD
      factor and substitute kernels and no tree kernel on the four dense
      tasks, the tree kernels and no SPD kernel on BallBalance, and the
-     same as phase 4; on Anymal also the env step's wall and device time;
+     same as phase 4;
   9. the ADR loop on ShadowHand at full width (1024 envs, 32 params,
      89-dim obs, trainTrajLen 30, MDNN [128, 128] x 10, PPO [512, 256,
      128] with nsteps 8) for 2 ADR iterations (ADR_PHASES): checks the
      tree factor, substitute, upsolve and downsolve kernels and no SPD
-     kernel, the same as phase 4, and the env step's wall and device
-     time; then 20 steps of shadow_hand_grasp_full.yaml (2048 envs, the
-     211-dim full_state obs) under its grasp policy: the obs and the
-     force, torque and dof-force blocks finite, and the step time;
+     kernel, and the same as phase 4; then 20 steps of
+     shadow_hand_grasp_full.yaml (2048 envs, the 211-dim full_state obs)
+     under its grasp policy: the obs and the force, torque and dof-force
+     blocks finite, and VecEnv.step's time graphed and eager;
  10. path signatures on the card (summarizers/signature.py: plain
      einsum/cumsum, no kernel of their own) at cartpole_more.yaml's
      collection shape (10000 time-augmented paths of 20 steps, 6
@@ -132,13 +142,16 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      a free local port), an all_gather and a broadcast of a CUDA tensor
      checked for values, and setup_parallelism(512), which must leave a
      single device and no mesh; the group is destroyed after.
-Each ADR phase runs its collection rounds and PPO rollouts as CUDA
-graphs of one step, and its PPO updates and MDN fits as CUDA graphs
-(utils/step_graph.py), checks that it replayed each and freed every
-graph it captured, and times the phases and, inside them, the
-summarizer, the fits, and predict's refit, mixtures and sampling; the
-env step profiles (Anymal, ShadowHand, the full_state probe) time the
-step eager and as a graph. Each ADR phase sets every kernel's
+Each ADR phase runs its collection rounds (reset, steps, extraction),
+its VecEnv resets, PPO rollouts (steps, last value), PPO updates and MDN
+fits as CUDA graphs (utils/step_graph.py), checks that it replayed the
+rounds' resets, steps and extractions, the rollouts, the updates and the
+fits and freed every graph it captured, and times the phases and, inside
+them, the summarizer, the fits, and predict's refit, mixtures and
+sampling; it breaks the collection's seconds down (the rounds' resets,
+step replays with their device time from phase 4, extractions,
+gather_envs, frames, captures, the rest) and times the evaluation video
+and the loop's .cpu() copies. Each ADR phase sets every kernel's
 launch count to 0 just before it runs and reads the counts just after
 (a graph replay adds the launches its capture counted). The line before
 the card's line is a JSON object with each kernel's numbers, its bound
@@ -987,16 +1000,40 @@ def _read_launches():
     return launch_counts()
 
 
+# The collection step's device ms at each task's ADR width (phase 4), by
+# task: an ADR phase's replay count times it is its replays' device time.
+STEP_DEV_MS = {}
+
+
 class _PhaseTimer:
     """Seconds spent in the ADR loop's phases (PPO, collection, MDN
     training, posterior), each timed between two synchronizes, and inside
     them: the summarizer, the model's fits (``MDNN.run_training``), and in
     ``predict`` the refit's fit, ``predict_MoGs`` (the forward and the
     host's mixtures) and the host's sampling of the mixtures
-    (``MoG.gen``). A nested time is part of its caller's."""
+    (``MoG.gen``). A nested time is part of its caller's.
 
-    def __init__(self):
+    The collection is broken down into exclusive seconds (``parts``), each
+    piece between two synchronizes: the round's reset, its step replays
+    (counted), its episode extraction (each a ``Graphed`` program by phase,
+    or in a tree where they are eager, ``env_full_reset`` and
+    ``_postprocess_round`` called by ``collect.py``), ``gather_envs``, the
+    frames (``_render_env0``) and the captures (a program's first call:
+    its eager body and its capture); what is left (the concatenation, the
+    copies, ``.cpu()`` of the rendered episode) is the rest of the
+    collection's seconds. Outside it: ``_write_video`` and the loop's own
+    ``.cpu()`` copies. Nothing is timed inside a capture."""
+
+    _PROGRAMS = {"reset": "reset", "collect": "replays",
+                 "extract": "extract"}
+
+    def __init__(self, task=None):
         self.secs = collections.defaultdict(float)
+        self.parts = collections.defaultdict(float)
+        self.replays = 0
+        self.step_dev_ms = STEP_DEV_MS.get(task)
+        self._open = []  # seconds of the pieces nested in each open piece
+        self._in_collect = False
         self._in_predict = False
         self._saved = []
 
@@ -1023,6 +1060,53 @@ class _PhaseTimer:
                 self._in_predict = False
         return predict
 
+    def _piece(self, fn, label, outermost=False):
+        """``fn`` timed into ``parts[label]`` while a collection runs (not
+        inside a capture), less the seconds of the pieces nested in it;
+        ``label`` is a name, or a function of the call's arguments giving
+        it (None: untimed). ``outermost``: timed only outside every other
+        piece (an eager function that a program's body may call too)."""
+        def piece(*args, **kwargs):
+            name = label(*args) if callable(label) else label
+            if (name is None or not self._in_collect
+                    or (outermost and self._open)
+                    or torch.cuda.is_current_stream_capturing()):
+                return fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self._open.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                self.parts[name] += dt - self._open.pop()
+                if self._open:
+                    self._open[-1] += dt
+        return piece
+
+    def _program(self, graphed):
+        """A program's call, as a piece named by its phase; counts the
+        collection step's replays."""
+        def name(program):
+            label = self._PROGRAMS.get(program.phase)
+            if (label == "replays" and self._in_collect
+                    and program._graph is not None):
+                self.replays += 1
+            return label
+        return self._piece(graphed, name)
+
+    def _collect(self, fn):
+        timed = self._timed(fn, "collect")
+
+        def collect(*args, **kwargs):
+            self._in_collect = True
+            try:
+                return timed(*args, **kwargs)
+            finally:
+                self._in_collect = False
+        return collect
+
     def _patch(self, owner, attr, new):
         self._saved.append((owner, attr, getattr(owner, attr)))
         setattr(owner, attr, new)
@@ -1032,10 +1116,36 @@ class _PhaseTimer:
         from bayes_sim_ig_tpu_torch.distributions import pdf
         from bayes_sim_ig_tpu_torch.models import MDNN
         from bayes_sim_ig_tpu_torch.rl import ppo
+        from bayes_sim_ig_tpu_torch.utils import collect, step_graph
         get_summarizer = engine.get_summarizer
         self._patch(ppo.PPO, "run", self._timed(ppo.PPO.run, "ppo.run"))
-        self._patch(bayes_sim_main, "collect_trajectories", self._timed(
-            bayes_sim_main.collect_trajectories, "collect"))
+        self._patch(bayes_sim_main, "collect_trajectories", self._collect(
+            bayes_sim_main.collect_trajectories))
+        graphed = step_graph.Graphed
+        self._patch(graphed, "__call__", self._program(graphed.__call__))
+        self._patch(graphed, "_capture", self._piece(graphed._capture,
+                                                     "captures"))
+        for attr, label in (("env_full_reset", "reset"),
+                            ("_postprocess_round", "extract")):
+            if hasattr(collect, attr):
+                self._patch(collect, attr, self._piece(
+                    getattr(collect, attr), label, outermost=True))
+        self._patch(collect, "gather_envs", self._piece(collect.gather_envs,
+                                                        "gather_envs"))
+        self._patch(collect, "_render_env0", self._piece(
+            collect._render_env0, "render"))
+        self._patch(bayes_sim_main, "_write_video", self._timed(
+            bayes_sim_main._write_video, "video"))
+        cpu = torch.Tensor.cpu
+        timed_cpu = self._timed(cpu, "loop .cpu()")
+
+        def loop_cpu(tensor, *args, **kwargs):
+            # The ADR loop's own copies (evaluation rewards, surrogate-real
+            # states and actions), not those of the functions it calls.
+            if sys._getframe(1).f_code.co_name == "_adr_loop":
+                return timed_cpu(tensor, *args, **kwargs)
+            return cpu(tensor, *args, **kwargs)
+        self._patch(torch.Tensor, "cpu", loop_cpu)
         self._patch(engine.BayesSim, "run_training", self._timed(
             engine.BayesSim.run_training, "bsim.run_training"))
         self._patch(engine.BayesSim, "predict",
@@ -1055,12 +1165,32 @@ class _PhaseTimer:
             setattr(owner, attr, fn)
         self._saved.clear()
 
+    def breakdown(self):
+        """{piece: seconds} of the collection, with "left over" (the rest
+        of its seconds), and the replays' count and device seconds."""
+        parts = {k: self.parts.get(k, 0.0) for k in (
+            "reset", "replays", "extract", "gather_envs", "render",
+            "captures")}
+        parts["left over"] = self.secs.get("collect", 0.0) - sum(
+            parts.values())
+        dev = (None if self.step_dev_ms is None
+               else self.replays * self.step_dev_ms / 1e3)
+        return parts, self.replays, dev
+
     def line(self):
         graphs = "; ".join(
             f"{k} graphs {v['captures']} captured in {v['capture_s']:.2f} "
             f"s, {v['replays']} replays"
             for k, v in getattr(self, "graphs", {}).items())
+        parts, replays, dev = self.breakdown()
+        dev = ("not measured" if dev is None else
+               f"{dev:.2f} s at {self.step_dev_ms:.4f} ms a replay")
+        collect = ", ".join(
+            f"{k} {v:.2f} s" + (f" ({replays} replays, device {dev})"
+                                if k == "replays" else "")
+            for k, v in parts.items())
         return (", ".join(f"{k} {v:.2f} s" for k, v in self.secs.items())
+                + f"; collect: {collect}"
                 + (f"; {graphs}" if graphs else ""))
 
 
@@ -1093,16 +1223,18 @@ def _run_adr(task, cfg, name, iters=2):
     gc.collect()  # the garbage of earlier phases, graphs included
     _reset_launches()
     t0 = time.perf_counter()
-    timer = _PhaseTimer()
+    timer = _PhaseTimer(task)
     out = _run_main(task, cfg, name, timer)
     secs = time.perf_counter() - t0
     launches = _read_launches()
-    # The collection rounds, the PPO rollouts and updates and the MDN fits
-    # ran as graph replays, and the loop freed every graph it captured.
-    for phase in ("collect", "rollout", "update", "fit"):
+    # The collection rounds (reset, steps, extraction), the PPO rollouts
+    # and updates and the MDN fits ran as graph replays, and the loop freed
+    # every graph it captured.
+    for phase in ("reset", "collect", "extract", "rollout", "update",
+                  "fit"):
         if step_graph.STATS.get(phase, {}).get("replays", 0) <= 0:
-            raise AssertionError(f"{name}: no {phase} step was replayed "
-                                 f"from a CUDA graph")
+            raise AssertionError(f"{name}: no {phase} program was "
+                                 f"replayed from a CUDA graph")
     timer.graphs = {k: dict(v) for k, v in step_graph.STATS.items()}
     if out["env"].step_graphs or step_graph.live_graphs():
         raise AssertionError(f"{name}: the ADR loop kept its graphs: "
@@ -1165,6 +1297,7 @@ def phase_adr_graph_vs_eager():
     frequencies, and the posterior, bit for bit; prints the first array
     that differs, if one does."""
     from bayes_sim_ig_tpu_torch import bayes_sim_main
+    from bayes_sim_ig_tpu_torch.utils import step_graph
     from bayes_sim_ig_tpu_torch.utils.args import load_config
     cfg = load_config(os.path.join(HERE, "bayes_sim_ig_tpu_torch", "cfg",
                                    "cartpole.yaml"))
@@ -1173,6 +1306,7 @@ def phase_adr_graph_vs_eager():
     for bodies in (False, True):
         np.random.seed(0)
         torch.manual_seed(0)
+        step_graph.STATS.clear()
         got = collections.OrderedDict()
         collect = bayes_sim_main.collect_trajectories
 
@@ -1192,6 +1326,10 @@ def phase_adr_graph_vs_eager():
         finally:
             bayes_sim_main.collect_trajectories = collect
         secs.append(time.perf_counter() - t0)
+        if not bodies:
+            programs = ", ".join(
+                f"{k} {v['captures']} captured, {v['replays']} replays"
+                for k, v in step_graph.STATS.items())
         for k, p in out["ppo"].net.named_parameters():
             got[f"ppo {k}"] = p.detach().clone()
         model = out["bsim"].model
@@ -1211,10 +1349,10 @@ def phase_adr_graph_vs_eager():
                f"rel {diffs[first][1]:.3g}); {len(diffs)} arrays differ: "
                f"{', '.join(diffs)}")
     print(f"[adr-graphs-vs-eager] Cartpole+MDRFF 512 envs, 1 ADR iteration "
-          f"with every graph ({secs[0]:.2f} s) and through the eager bodies "
-          f"({secs[1]:.2f} s): {len(runs[0])} arrays (every collected "
-          f"batch, PPO params, MDN params, RFF frequencies, posterior) "
-          f"{verdict}", flush=True)
+          f"with every graph ({secs[0]:.2f} s; programs by phase: "
+          f"{programs}) and through the eager bodies ({secs[1]:.2f} s): "
+          f"{len(runs[0])} arrays (every collected batch, PPO params, MDN "
+          f"params, RFF frequencies, posterior) {verdict}", flush=True)
     return diffs
 
 
@@ -1246,45 +1384,29 @@ def phase_adr_pendulum():
 
 
 def _env_step_profile(env, steps=20, act=None):
-    """One env step at the phase's width (zero actions unless ``act``),
-    eager (``VecEnv.step``) and as a CUDA graph of env_step alone
-    (``StepGraph``): wall ms per step (host clock, synchronized), device
-    ms per step (torch.profiler, the largest of three traces), device
-    operations per step and the device's busy share of the wall."""
-    from bayes_sim_ig_tpu_torch.sim.task import env_step
-    from bayes_sim_ig_tpu_torch.utils.step_graph import StepGraph
+    """One env step at the phase's width (zero actions unless ``act``)
+    through ``VecEnv.step``: its program (a CUDA graph replay of
+    ``env_step``, with its buffers' copies) and its eager body
+    (``_eager_bodies``): wall ms per step (host clock, synchronized),
+    device ms per step (torch.profiler, the largest of three traces),
+    device operations per step and the device's busy share of the
+    wall."""
     if act is None:
         act = torch.zeros(env.num_envs, env.task.act_dim, device="cuda:0")
-    for _ in range(3):
-        env.step(act)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        env.step(act)
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / steps
-    dev, kernels = _device_profile(lambda: env.step(act), n=steps)
 
-    def body(state, obs, distr):
-        state, obs, _, _ = env_step(env.task, distr, state, act, env.gen)
-        return state, obs, {}
-    obs = torch.zeros(env.num_envs, env.task.obs_dim, device="cuda:0")
-    graph = StepGraph("probe", body, env.state, obs, env._distr,
-                      5 + 4 * steps, {}, [env.gen])
-    graph.load(env.state, obs, env._distr)
-    for _ in range(4):  # the first captures
-        graph.step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        graph.step()
-    torch.cuda.synchronize()
-    g_wall = (time.perf_counter() - t0) * 1e3 / steps
-    g_dev, g_kernels = _device_profile(graph.step, n=steps)
+    def step():
+        env.step(act)
+    g_wall = _wall_ms(step, steps, warmup=3)  # the first call captures
+    g_dev, g_kernels = _device_profile(step, n=steps)
+    with _eager_bodies():
+        wall = _wall_ms(step, steps, warmup=1)
+        dev, kernels = _device_profile(step, n=steps)
+    program = [v for k, v in env.step_graphs.items() if k[0] == "step"][0]
     return {"wall_ms": wall, "dev_ms": dev, "kernels": kernels,
             "busy": None if dev is None else dev / wall,
             "graph_wall_ms": g_wall, "graph_dev_ms": g_dev,
-            "graph_kernels": g_kernels, "capture_s": graph.capture_s,
+            "graph_kernels": g_kernels,
+            "capture_s": program._graph.capture_s,
             "graph_busy": None if g_dev is None else g_dev / g_wall}
 
 
@@ -1322,7 +1444,9 @@ def _graph_vs_eager(g, load, gens, n):
     each from ``load()`` and the generators' states at entry (a new graph
     is captured first). Returns ({name: (max abs, max relative deviation)}
     of every trajectory entry, state leaf, observation or generator state
-    that is not bit for bit equal, graph launches, eager launches)."""
+    that is not bit for bit equal, graph launches, eager launches, and the
+    wall ms per step of the replays and of the bodies (host clock,
+    synchronized on each side))."""
     starts = [gen.get_state() for gen in gens]
     if g.capture_s is None:
         load()
@@ -1333,9 +1457,12 @@ def _graph_vs_eager(g, load, gens, n):
             gen.set_state(st)
         load()
         before = _read_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         for _ in range(n):
             step()
         torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / n
         after = _read_launches()
         got = {f"traj.{k}": v[:n].clone() for k, v in g.traj.items()}
         got.update({name: v.clone() for name, v in _state_leaves(g.state)})
@@ -1343,10 +1470,11 @@ def _graph_vs_eager(g, load, gens, n):
         got.update({f"generator {i}": gen.get_state()
                     for i, gen in enumerate(gens)})
         return got, {k: after[k] - before[k] for k in after
-                     if after[k] != before[k]}
+                     if after[k] != before[k]}, ms
 
-    (graph, g_launches), (eager, e_launches) = run(g.step), run(g.body)
-    return _bit_diffs(graph, eager), g_launches, e_launches
+    (graph, g_launches, g_ms), (eager, e_launches, e_ms) = (run(g.step),
+                                                           run(g.body))
+    return _bit_diffs(graph, eager), g_launches, e_launches, g_ms, e_ms
 
 
 def _bit_diffs(got, want):
@@ -1382,12 +1510,6 @@ def _wall_ms(fn, n, warmup=1):
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / n
-
-
-def _timed_steps(g, load, n, body=False):
-    """Wall ms per step of n steps after 3 (replays, or eager bodies)."""
-    load()
-    return _wall_ms(g.body if body else g.step, n, warmup=3)
 
 
 def _no_sync_step(g, load):
@@ -1462,13 +1584,13 @@ def step_graph_check(task_name, stem, envs, edits):
 
     def cload():
         cg.load(st0, obs0, prior)
-    c_diffs, c_graph, c_eager = _graph_vs_eager(cg, cload, [ppo.gen],
-                                                GRAPH_STEPS)
+    c_diffs, c_graph, c_eager, c_wall, c_eager_wall = _graph_vs_eager(
+        cg, cload, [ppo.gen], GRAPH_STEPS)
     _no_sync_step(cg, cload)
-    c_wall = _timed_steps(cg, cload, GRAPH_STEPS)
-    c_eager_wall = _timed_steps(cg, cload, GRAPH_STEPS, body=True)
     cload()
     c_dev, c_ops = _device_profile(cg.step, n=GRAPH_STEPS)
+    if c_dev is not None:
+        STEP_DEV_MS[task_name] = c_dev
 
     post = _posterior(spec)
     env.set_distr(post)
@@ -1479,11 +1601,9 @@ def step_graph_check(task_name, stem, envs, edits):
 
     def rload():
         rg.load(st_r, obs_r, post)
-    r_diffs, r_graph, r_eager = _graph_vs_eager(
+    r_diffs, r_graph, r_eager, r_wall, r_eager_wall = _graph_vs_eager(
         rg, rload, [ppo.gen, env.gen], ppo.nsteps)
     _no_sync_step(rg, rload)
-    r_wall = _timed_steps(rg, rload, ppo.nsteps - 3)
-    r_eager_wall = _timed_steps(rg, rload, ppo.nsteps - 3, body=True)
     diffs = {**{f"collect {k}": v for k, v in c_diffs.items()},
              **{f"rollout {k}": v for k, v in r_diffs.items()}}
     if diffs:
@@ -1518,8 +1638,165 @@ def step_graph_check(task_name, stem, envs, edits):
           f"step {r_wall:.3f} ms against {r_eager_wall:.2f} ms, "
           f"captured in {rg.capture_s:.3f} s; "
           f"{time.perf_counter() - t_task:.1f} s", flush=True)
+    t_task = time.perf_counter()
+    record["round"] = round_check(env, ppo, cpol, mel, prior)
+    record["vec_env"] = vec_env_check(env, post)
+    act_check(ppo, obs_r)
+    rnd, venv = record["round"], record["vec_env"]
+    busy = ("not measured" if venv["dev_ms"] is None
+            else f"{venv['dev_ms'] / venv['wall_ms']:.3f}")
+    print(f"[graphs] {task_name} {envs} envs, programs against their eager "
+          f"bodies, bit for bit with equal launches: a collection round "
+          f"(reset, {mel - 1} steps, extraction; {rnd['arrays']} arrays: "
+          f"labels, states, actions, rewards, generator) "
+          f"{rnd['wall_s'] * 1e3:.2f} ms against {rnd['eager_s'] * 1e3:.2f} "
+          f"ms, programs captured in {rnd['capture_s']:.3f} s; VecEnv.reset "
+          f"+ {venv['steps']} VecEnv.step ({venv['arrays']} arrays: obs, "
+          f"rewards, dones, {n_leaves} state leaves, generator) reset "
+          f"{venv['reset_ms']:.3f} ms against {venv['eager_reset_ms']:.2f} "
+          f"ms, step {venv['wall_ms']:.3f} ms wall against "
+          f"{venv['eager_wall_ms']:.2f} ms, device {_fmt(venv['dev_ms'])} "
+          f"({venv['ops']} device operations, busy share {busy}), captured "
+          f"in {venv['capture_s']:.3f} s; PPO.act stochastic and "
+          f"deterministic (actions, log-probabilities, generator); "
+          f"{time.perf_counter() - t_task:.1f} s", flush=True)
+    ppo.free_update_graphs()
     env.free_step_graphs()
     return record
+
+
+def _capture_s(programs):
+    return sum(p.capture_s or 0.0 for p in programs)
+
+
+def round_check(env, ppo, cpol, mel, distr):
+    """One collection round (``_collect_round``: its reset, ``mel - 1``
+    steps and extraction) through its programs, after a round that
+    captures them, against the same round through their eager bodies from
+    the same generator state: labels, states, actions, rewards and the
+    generator bit for bit, the launches equal; the wall seconds of each."""
+    from bayes_sim_ig_tpu_torch.utils.collect import (
+        _collect_round, collect_step_graph,
+    )
+    from bayes_sim_ig_tpu_torch.utils.step_graph import distr_key
+
+    def run():
+        return _collect_round(env, ppo.policy_apply, cpol, mel, ppo.net,
+                              distr, ppo.gen)
+    run()  # captures the reset, the step and the extraction
+    start = ppo.gen.get_state()
+    runs = []
+    for bodies in (False, True):
+        ppo.gen.set_state(start)
+        before = _read_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _eager_bodies() if bodies else contextlib.nullcontext():
+            out = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        after = _read_launches()
+        got = dict(zip(("labels", "states", "actions", "rewards"), out))
+        got["generator"] = ppo.gen.get_state()
+        runs.append((got, secs, {k: after[k] - before[k] for k in after
+                                 if after[k] != before[k]}))
+    (graph, g_s, g_l), (eager, e_s, e_l) = runs
+    diffs = _bit_diffs(graph, eager)
+    if diffs:
+        raise AssertionError(f"collection round: programs and eager differ "
+                             f"in {_diff_line(diffs)}")
+    if g_l != e_l:
+        raise AssertionError(f"collection round: launches {g_l} != eager "
+                             f"{e_l}")
+    programs = [
+        env.step_graphs[("reset", ppo.gen, distr_key(distr))]._program,
+        collect_step_graph(env, ppo.policy_apply, cpol, mel, ppo.net, distr,
+                           ppo.gen, None, None)._program,
+        env.step_graphs[("round", mel - 1)].extract]
+    return {"arrays": len(graph), "wall_s": g_s, "eager_s": e_s,
+            "capture_s": _capture_s(programs), "launches": g_l}
+
+
+def vec_env_check(env, distr, steps=GRAPH_STEPS):
+    """``VecEnv.reset`` and ``steps`` ``VecEnv.step`` calls (actions in
+    [-1, 1] from a generator of their own) through their programs, after
+    calls that capture them, against the same calls through their eager
+    bodies, from the same env generator and state (the reset carries the
+    frame counter on): every returned obs, reward and done, every state
+    leaf and the generator bit for bit, the launches equal. Returns the
+    wall ms of the reset and of a step (host clock, synchronized) of each,
+    the graphed step's device ms and operations (profiler) and the two
+    captures' seconds."""
+    from bayes_sim_ig_tpu_torch.utils.step_graph import distr_key
+    gen = torch.Generator(device="cuda:0").manual_seed(1)
+    acts = [torch.rand(env.num_envs, env.task.act_dim, generator=gen,
+                       device="cuda:0") * 2.0 - 1.0 for _ in range(steps)]
+    env.set_distr(distr)
+    env.reset()
+    env.step(acts[0])  # both programs captured
+    start_gen, start_state = env.gen.get_state(), env.state
+
+    def run(bodies):
+        env.gen.set_state(start_gen)
+        env.state = start_state
+        before = _read_launches()
+        with _eager_bodies() if bodies else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = {"reset obs": env.reset()}
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for t, act in enumerate(acts):
+                obs, rew, done, _ = env.step(act)
+                got.update({f"step {t} obs": obs, f"step {t} rew": rew,
+                            f"step {t} done": done})
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        after = _read_launches()
+        got.update(_state_leaves(env.state))
+        got["generator"] = env.gen.get_state()
+        return (got, (t1 - t0) * 1e3, (t2 - t1) * 1e3 / steps,
+                {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]})
+    (graph, g_reset, g_step, g_l), (eager, e_reset, e_step, e_l) = (
+        run(False), run(True))
+    diffs = _bit_diffs(graph, eager)
+    if diffs:
+        raise AssertionError(f"VecEnv: programs and eager differ in "
+                             f"{_diff_line(diffs)}")
+    if g_l != e_l:
+        raise AssertionError(f"VecEnv: launches {g_l} != eager {e_l}")
+    dev, ops = _device_profile(lambda: env.step(acts[0]), n=steps)
+    programs = [
+        env.step_graphs[("reset", env.gen, distr_key(distr))]._program,
+        env.step_graphs[("step", env.max_episode_length,
+                         distr_key(distr))]._graph._program]
+    return {"steps": steps, "arrays": len(graph), "reset_ms": g_reset,
+            "eager_reset_ms": e_reset, "wall_ms": g_step,
+            "eager_wall_ms": e_step, "dev_ms": dev, "ops": ops,
+            "capture_s": _capture_s(programs)}
+
+
+def act_check(ppo, obs):
+    """``PPO.act``, stochastic and deterministic, through its programs
+    (after calls that capture them) and through their bodies from the same
+    generator state: actions, log-probabilities and the generator bit for
+    bit."""
+    ppo.act(obs)
+    ppo.act(obs, deterministic=True)
+    start = ppo.gen.get_state()
+
+    def run(bodies):
+        ppo.gen.set_state(start)
+        with _eager_bodies() if bodies else contextlib.nullcontext():
+            act, logp = ppo.act(obs)
+            mean, _ = ppo.act(obs, deterministic=True)
+        return {"act": act, "logp": logp, "mean": mean,
+                "generator": ppo.gen.get_state()}
+    diffs = _bit_diffs(run(False), run(True))
+    if diffs:
+        raise AssertionError(f"PPO.act: programs and eager differ in "
+                             f"{_diff_line(diffs)}")
 
 
 # ------------------------------------------------------------------ #
@@ -1576,11 +1853,12 @@ UPDATE_TASKS = [("Ant", "ant", 1024, {}, (4, 4)),
 
 
 def update_graph_check(task_name, stem, envs, edits, shape, smi):
-    """One PPO update (``update_from_traj``: prepare, noptepochs x
-    nminibatches minibatch steps, finish) on a rollout of the task at full
-    width, as graph replays (after the call that captures) and as the
-    eager bodies from the same params, Adam state, lr and generators:
-    every one of them and the update's metrics bit for bit, the launches
+    """One PPO update (``update_from_traj``: prepare, which draws the
+    epochs' permutations, noptepochs x nminibatches minibatch steps,
+    finish) on a rollout of the task at full width, as graph replays
+    (after the call that captures) and as the eager bodies from the same
+    params, Adam state, lr and generators: every one of them, the
+    permutations and the update's metrics bit for bit, the launches
     equal; wall ms per update graphed and eager, its device ms, operations
     and busy share, and the three programs' capture seconds."""
     from bayes_sim_ig_tpu_torch.rl.ppo import process_ppo
@@ -1600,15 +1878,12 @@ def update_graph_check(task_name, stem, envs, edits, shape, smi):
     env.set_distr(post)
     obs = env.reset()
     _, _, traj, last_val = ppo.rollout(post, env.state, obs)
-    perms = torch.stack([
-        torch.randperm(ppo.nsteps * envs, generator=ppo.gen, device="cuda:0")
-        for _ in range(ppo.noptepochs)])
     start = _ppo_state(ppo)
 
-    def update():
-        return ppo.update_from_traj(traj, last_val, perms)
+    def update():  # the permutations drawn by prepare, as on the ADR path
+        return ppo.update_from_traj(traj, last_val)
     update()  # captures prepare, minibatch and finish
-    program = ppo.update_program(traj, last_val)
+    program = ppo.update_program(traj, last_val, draw=True)
 
     def run(bodies):
         _set_ppo_state(ppo, start)
@@ -1618,6 +1893,7 @@ def update_graph_check(task_name, stem, envs, edits, shape, smi):
         torch.cuda.synchronize()
         after = _read_launches()
         got = _ppo_state(ppo)
+        got["permutations"] = program._rows.clone()
         got["metrics"] = program.metrics.clone()
         got.update({f"out {k}": v for k, v in out.items()})
         return got, {k: after[k] - before[k] for k in after
@@ -1648,9 +1924,11 @@ def update_graph_check(task_name, stem, envs, edits, shape, smi):
     rows = ppo.nsteps * envs // ppo.nminibatches
     print(f"[train-graphs] {task_name} PPO update ({ppo.nsteps} x {envs} "
           f"rows, {ppo.noptepochs} x {ppo.nminibatches} minibatches of "
-          f"{rows}{', asymmetric' if ppo.asymmetric else ''}): replays "
+          f"{rows}{', asymmetric' if ppo.asymmetric else ''}; "
+          f"permutations of {ppo.nsteps * envs} drawn by prepare): replays "
           f"equal the eager bodies bit for bit ({len(graph)} arrays: "
-          f"params, Adam state, lr, metrics, generators); update graphed "
+          f"params, Adam state, lr, permutations, metrics, generators); "
+          f"update graphed "
           f"{wall:.2f} ms wall ({wall / n_mb:.3f} ms a minibatch) against "
           f"eager {eager_wall:.2f} ms ({eager_wall / n_mb:.3f}), device "
           f"{_fmt(dev)} ({ops} device operations, busy share {busy}) "
@@ -1851,8 +2129,6 @@ ADR_PHASES = [
     ("ShadowHand", "shadow_hand", 1024, 32, [512, 256, 128], 8, 30,
      "summary_corrdiff", _TREE + _HALF, 1000, {}, 2),
 ]
-# The phases whose env step is profiled after the loop.
-STEP_PROFILED = ("Anymal", "ShadowHand")
 
 # The tasks of the step-graph phase: (task, config stem, numEnvs, env
 # edits), the ADR phases' widths and cuts. ShadowHand runs with the
@@ -1904,13 +2180,11 @@ def phase_adr(task, stem, envs, dim, widths, nsteps, traj_len, summarizer,
     assert ppo.nsteps == nsteps and ppo.activation == "elu"
     if task == "ShadowHand":
         assert env.task.obs_dim == 89 and env.task.act_dim == 20
-    step = _env_step_profile(env) if task in STEP_PROFILED else None
     print(f"[adr] {task} {envs} envs, nv {env.task.model.nv}, {iters} ADR "
           f"iteration(s) in {secs:.2f} s (per iteration: "
           f"{', '.join(f'{s:.2f}' for s in out['iter_secs'])} s; phases: "
           f"{timer.line()}); launches {launches}; {dim}-dim posteriors "
-          f"finite; model, refit, policy and env tensors on cuda"
-          + ("" if step is None else f"; {_step_line(step)}"),
+          f"finite; model, refit, policy and env tensors on cuda",
           flush=True)
     return launches
 

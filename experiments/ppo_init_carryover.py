@@ -94,7 +94,7 @@ def gain(seed: int, jax_init: bool, logdir: str) -> float:
     spec = env.task.params_spec
     env.set_distr(to_device_distr(
         MoG(a=[1.0], ms=[np.ones(2)], Ss=[np.eye(2) * 1e-10]),
-        spec.lows, spec.highs))
+        spec.lows, spec.highs, device="cpu"))
     ppo = process_ppo(env, _cfg_train(seed), logdir=logdir)
     if jax_init:
         key = jax.random.split(jax.random.PRNGKey(seed + 12345))[1]

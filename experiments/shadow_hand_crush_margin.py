@@ -66,7 +66,7 @@ def _port_env(seed):
     env = make_env("ShadowHand", _cfg(), seed=seed, device="cpu")
     spec = env.task.params_spec
     env.set_distr(to_device_distr(MoG(**_delta(spec)), spec.lows,
-                                  spec.highs))
+                                  spec.highs, device="cpu"))
     env.reset()
     return env
 

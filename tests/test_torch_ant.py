@@ -115,7 +115,8 @@ def test_corner_params_stay_finite():
     spec = env.task.params_spec
     env.set_distr(to_device_distr(
         MoG(a=[1.0], ms=[np.asarray(spec.lows, np.float64)],
-            Ss=[np.eye(spec.dim) * 1e-12]), spec.lows, spec.highs))
+            Ss=[np.eye(spec.dim) * 1e-12]), spec.lows, spec.highs,
+        device="cpu"))
     env.reset()
     rs = np.random.RandomState(1)
     for t in range(80):
@@ -131,7 +132,8 @@ def test_nan_pivot_env_is_quarantined_and_reset():
     next."""
     env = make_env("Ant", _cfg(3), seed=2, device="cpu")
     spec = env.task.params_spec
-    env.set_distr(to_device_distr(Uniform(spec.lows, spec.highs)))
+    env.set_distr(to_device_distr(Uniform(spec.lows, spec.highs),
+                                  device="cpu"))
     env.reset()
     params = env.state.params.clone()
     params[1, :9] = -1.0  # the 9 mass multipliers
@@ -151,7 +153,8 @@ def test_nan_pivot_env_is_quarantined_and_reset():
 def test_render_obs_frame():
     env = make_env("Ant", _cfg(2), device="cpu")
     spec = env.task.params_spec
-    env.set_distr(to_device_distr(Uniform(spec.lows, spec.highs)))
+    env.set_distr(to_device_distr(Uniform(spec.lows, spec.highs),
+                                  device="cpu"))
     obs = env.reset()
     frame = env.task.render_obs_frame(obs[0].numpy())
     assert frame.shape == (200, 200, 3) and frame.dtype == np.uint8

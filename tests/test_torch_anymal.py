@@ -77,7 +77,8 @@ def test_commands_are_resampled_per_episode():
     """A reset env draws new commands; the others keep theirs."""
     env = make_env("Anymal", tc.load_cfg(STEM, 3), seed=4, device="cpu")
     spec = env.task.params_spec
-    env.set_distr(to_device_distr(Uniform(spec.lows, spec.highs)))
+    env.set_distr(to_device_distr(Uniform(spec.lows, spec.highs),
+                                  device="cpu"))
     env.reset()
     cmd0 = env.state.task_state.commands.clone()
     env.state = env.state._replace(
@@ -125,7 +126,8 @@ def test_nan_pivot_env_is_quarantined_and_reset():
     ends its episode with zeroed obs and reward and resets it next."""
     env = make_env("Anymal", tc.load_cfg(STEM, 3), seed=2, device="cpu")
     spec = env.task.params_spec
-    env.set_distr(to_device_distr(Uniform(spec.lows, spec.highs)))
+    env.set_distr(to_device_distr(Uniform(spec.lows, spec.highs),
+                                  device="cpu"))
     env.reset()
     params = env.state.params.clone()
     params[1] = -1.0

@@ -39,7 +39,7 @@ def test_asymmetric_actor_critic(tmp_path):
     assert task.state_dim == 2 and task.obs_dim == 3
     spec = task.params_spec
     mog = MoG(a=[1.0], ms=[np.ones(2)], Ss=[np.eye(2) * 1e-10])
-    env.set_distr(to_device_distr(mog, spec.lows, spec.highs))
+    env.set_distr(to_device_distr(mog, spec.lows, spec.highs, device="cpu"))
     cfg_train = {"seed": 0, "learn": {
         "nsteps": 8, "noptepochs": 2, "nminibatches": 2,
         "save_interval": 1000}, "policy": {
@@ -79,7 +79,7 @@ def test_privileged_state_width_matches_jax():
     spec = env.task.params_spec
     env.set_distr(to_device_distr(MoG(a=[1.0], ms=[np.ones(spec.dim)],
                                       Ss=[np.eye(spec.dim) * 1e-12]),
-                                  spec.lows, spec.highs))
+                                  spec.lows, spec.highs, device="cpu"))
     env.reset()
     st = env.get_state()
     assert st.shape == (2, 208) and torch.isfinite(st).all()

@@ -123,7 +123,8 @@ def test_nan_pivot_env_is_quarantined_and_reset():
     env = make_env("BallBalance", tc.load_cfg(STEM, 3), seed=2,
                    device="cpu")
     spec = env.task.params_spec
-    env.set_distr(to_device_distr(Uniform(spec.lows, spec.highs)))
+    env.set_distr(to_device_distr(Uniform(spec.lows, spec.highs),
+                                  device="cpu"))
     env.reset()
     params = env.state.params.clone()
     params[1, 0] = -1.0

@@ -273,7 +273,8 @@ def test_corner_params_stay_finite():
     spec = env.task.params_spec
     env.set_distr(to_device_distr(
         MoG(a=[1.0], ms=[np.asarray(spec.lows, np.float64)],
-            Ss=[np.eye(spec.dim) * 1e-12]), spec.lows, spec.highs))
+            Ss=[np.eye(spec.dim) * 1e-12]), spec.lows, spec.highs,
+        device="cpu"))
     env.reset()
     rs = np.random.RandomState(1)
     for t in range(40):
@@ -288,7 +289,8 @@ def test_nan_pivot_env_is_quarantined_and_reset():
     ends its episode with zeroed obs and reward, and resets it next."""
     env = make_env("Humanoid", _cfg(3), seed=2, device="cpu")
     spec = env.task.params_spec
-    env.set_distr(to_device_distr(Uniform(spec.lows, spec.highs)))
+    env.set_distr(to_device_distr(Uniform(spec.lows, spec.highs),
+                                  device="cpu"))
     env.reset()
     params = env.state.params.clone()
     params[1, :16] = -1.0  # the 16 mass multipliers
@@ -308,7 +310,8 @@ def test_nan_pivot_env_is_quarantined_and_reset():
 def test_render_obs_frame():
     env = make_env("Humanoid", _cfg(2), device="cpu")
     spec = env.task.params_spec
-    env.set_distr(to_device_distr(Uniform(spec.lows, spec.highs)))
+    env.set_distr(to_device_distr(Uniform(spec.lows, spec.highs),
+                                  device="cpu"))
     obs = env.reset()
     frame = env.task.render_obs_frame(obs[0].numpy())
     want = JaxHumanoid(_cfg(2)).render_obs_frame(obs[0].numpy())

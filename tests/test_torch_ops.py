@@ -115,7 +115,8 @@ def test_rff_module_features_match_jax():
     from bayes_sim_ig_tpu.models.rff import RFF as JaxRFF
     from bayes_sim_ig_tpu_torch.models.rff import RFF
     jrff = JaxRFF(20, 6, 2.0, quasi_random=True, kernel="Matern32")
-    trff = RFF(20, 6, 2.0, quasi_random=True, kernel="Matern32")
+    trff = RFF(20, 6, 2.0, quasi_random=True, kernel="Matern32",
+               device="cpu")
     # Halton draws are deterministic: the two packages draw one coeff.
     np.testing.assert_array_equal(trff.coeff.numpy(), jrff.coeff)
     assert trff.coeff.is_contiguous()  # the CUDA wrapper takes only these

@@ -207,7 +207,7 @@ def test_per_env_steps_do_not_depend_on_the_batch(task_name, stem, atol,
                        seed=3, device="cpu")
         spec = env.task.params_spec
         distr = to_device_distr(pdf.Uniform(spec.lows, spec.highs),
-                                spec.lows, spec.highs)
+                                spec.lows, spec.highs, device="cpu")
         sl = env_slice(n, mesh)
         gen = torch.Generator().manual_seed(11)
         state, obs = env_full_reset(env.task, distr, gen)

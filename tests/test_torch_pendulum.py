@@ -104,7 +104,8 @@ def test_init_state_and_env_semantics():
     env = make_env("Pendulum", pendulum_cfg(num_envs=256, episode_len=11),
                    device="cpu")
     spec = env.task.params_spec
-    env.set_distr(to_device_distr(Uniform(spec.lows, spec.highs)))
+    env.set_distr(to_device_distr(Uniform(spec.lows, spec.highs),
+                                  device="cpu"))
     obs = env.reset()
     st = env.state.task_state
     assert (st.th.abs() <= np.pi).all() and st.th.abs().max() > 2.5
@@ -121,7 +122,8 @@ def test_init_state_and_env_semantics():
 def test_get_img_and_render_match_jax():
     env = make_env("Pendulum", pendulum_cfg(), device="cpu")
     spec = env.task.params_spec
-    env.set_distr(to_device_distr(Uniform(spec.lows, spec.highs)))
+    env.set_distr(to_device_distr(Uniform(spec.lows, spec.highs),
+                                  device="cpu"))
     obs = env.reset()
     jt = JaxPendulum(pendulum_cfg())
     np.testing.assert_array_equal(env.task.render_obs_frame(obs[3].numpy()),
@@ -155,7 +157,7 @@ def _ppo_gain(seed, tmp_path):
     spec = env.task.params_spec
     env.set_distr(to_device_distr(
         MoG(a=[1.0], ms=[np.ones(2)], Ss=[np.eye(2) * 1e-10]),
-        spec.lows, spec.highs))
+        spec.lows, spec.highs, device="cpu"))
     cfg_train = {"seed": seed, "learn": {
         "nsteps": 64, "noptepochs": 5, "nminibatches": 4,
         "optim_stepsize": 1e-3, "desired_kl": 0.008, "gamma": 0.95,

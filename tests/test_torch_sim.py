@@ -91,7 +91,7 @@ def test_env_step_quarantines_a_nan_env_like_jax():
     cfg = _cfg(4)
     spec_lows = Cartpole(cfg, device="cpu").params_spec.lows
     spec_highs = Cartpole(cfg, device="cpu").params_spec.highs
-    prior_t = to_device_distr(Uniform(spec_lows, spec_highs))
+    prior_t = to_device_distr(Uniform(spec_lows, spec_highs), device="cpu")
     from bayes_sim_ig_tpu.distributions import Uniform as JaxUniform
     prior_j = jax_to_device_distr(JaxUniform(spec_lows, spec_highs))
 
@@ -133,7 +133,7 @@ def test_env_step_resets_at_the_episode_length():
     mean[9:] = 0.5
     env.set_distr(to_device_distr(
         MoG(a=[1.0], ms=[mean], Ss=[np.eye(spec.dim) * 1e-8]),
-        spec.lows, spec.highs))
+        spec.lows, spec.highs, device="cpu"))
     env.max_episode_length = 4
     env.reset()
     dones = [int(env.step(torch.zeros(3, 1))[2][0]) for _ in range(4)]
@@ -156,7 +156,7 @@ def test_sample_distr_moments_and_bounds(kind):
         ms = [np.array([0.3, -0.2, 1.2]), np.array([0.6, 0.4, 2.0])]
         host = MoG(a=[0.3, 0.7], ms=ms, Ss=[c, c * 0.5])
         mean, cov = host.calc_mean_and_cov()
-    distr = to_device_distr(host, lows, highs)
+    distr = to_device_distr(host, lows, highs, device="cpu")
     gen = torch.Generator().manual_seed(0)
     x = sample_distr(distr, gen, n).double().numpy()
     assert x.shape == (n, 3)
@@ -176,7 +176,7 @@ def test_device_mog_cholesky_layout_matches_jax():
     c = np.array([[0.04, 0.01], [0.01, 0.09]])
     host_t = MoG(a=[1.0], ms=[np.zeros(2)], Ss=[c])
     host_j = JaxMoG(a=[1.0], ms=[np.zeros(2)], Ss=[c])
-    t = to_device_distr(host_t, [-1, -1], [1, 1])
+    t = to_device_distr(host_t, [-1, -1], [1, 1], device="cpu")
     j = jax_to_device_distr(host_j, [-1, -1], [1, 1])
     np.testing.assert_allclose(t.chols.numpy(), np.asarray(j.chols))
     np.testing.assert_allclose(t.weights.numpy(),
@@ -257,7 +257,8 @@ def test_base_task_get_img_is_none_like_jax():
     draws one (the JAX package's sim/task.py:102)."""
     env = make_env("Cartpole", _cfg(4), seed=0, device="cpu")
     spec = env.task.params_spec
-    env.set_distr(to_device_distr(Uniform(spec.lows, spec.highs)))
+    env.set_distr(to_device_distr(Uniform(spec.lows, spec.highs),
+                                  device="cpu"))
     env.reset()
     assert env.task.get_img(env.state) is None
     assert env.task.get_img(env.state, env_id=3, height=8, width=8) is None

@@ -91,7 +91,7 @@ def _setup(task_name, tmp_path, asymmetric=False):
 def _uniform(task):
     spec = task.params_spec
     return to_device_distr(Uniform(spec.lows, spec.highs), spec.lows,
-                           spec.highs)
+                           spec.highs, device="cpu")
 
 
 def _mog(task, k=3, seed=0):
@@ -103,7 +103,8 @@ def _mog(task, k=3, seed=0):
     ms = [lo + (hi - lo) * rs.uniform(0.3, 0.7, lo.shape) for _ in range(k)]
     Ss = [np.diag(((hi - lo) * 0.05) ** 2 + 1e-12) for _ in range(k)]
     w = rs.uniform(0.5, 1.0, k)
-    return to_device_distr(MoG(a=w / w.sum(), ms=ms, Ss=Ss), lo, hi)
+    return to_device_distr(MoG(a=w / w.sum(), ms=ms, Ss=Ss), lo, hi,
+                           device="cpu")
 
 
 def _leaves(state):
@@ -265,7 +266,9 @@ def test_collect_round_equals_the_stacked_loop(task_name, tmp_path):
     got = [_collect_round(env, ppo.policy_apply, collect_policy, mel,
                           ppo.net, distr, gen) for _ in range(2)]
     got_gen = gen.get_state()
-    assert len(env.step_graphs) == 1
+    # One step graph, one reset and one round's buffers, cached.
+    assert sorted(k[0] for k in env.step_graphs) == ["collect", "reset",
+                                                     "round"]
     gen.set_state(start)
     want = [_old_collect_round(task, ppo.policy_apply, collect_policy, mel,
                                ppo.net, distr, gen) for _ in range(2)]

@@ -103,7 +103,8 @@ def delta_env(task_name, stem, mean, num_envs=4, cfg=None, seed=0):
     spec = env.task.params_spec
     env.set_distr(to_device_distr(
         MoG(a=[1.0], ms=[np.asarray(mean, np.float64)],
-            Ss=[np.eye(spec.dim) * 1e-12]), spec.lows, spec.highs))
+            Ss=[np.eye(spec.dim) * 1e-12]), spec.lows, spec.highs,
+        device="cpu"))
     return env
 
 
@@ -152,7 +153,8 @@ def scale_dr_stays_finite(task_name, stem, steps=20):
 def render_matches_jax(task_name, stem, jax_task):
     env = make_env(task_name, load_cfg(stem, 2), device="cpu")
     spec = env.task.params_spec
-    env.set_distr(to_device_distr(Uniform(spec.lows, spec.highs)))
+    env.set_distr(to_device_distr(Uniform(spec.lows, spec.highs),
+                                  device="cpu"))
     obs = env.reset()
     frame = env.task.render_obs_frame(obs[0].numpy())
     assert frame.ndim == 3 and frame.shape[2] == 3
