@@ -30,7 +30,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
        the clean run, factor, substitute and fused solve);
      - the tree L^T D L factor and substitute (csrc/tree_ltdl.cu) on
        Humanoid's dof tree at N = 4096, 1 and 17, BallBalance's two-root
-       forest at 128 and 129, ShadowHand's tree at 1024, Ant's (nearly
+       forest at 128 and 129, ShadowHand's tree at 1024, 10000
+       (shadow_hand_more.yaml) and 16384 (phase 9c), Ant's (nearly
        dense) tree at 1024 and 1025,
        Anymal's at 4000, a random 30-dof tree (numpy, seed 0) at 1024 and
        1027 and a 40-deep chain (chains longer than the 16 lanes of an
@@ -39,8 +40,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
        plain dense Cholesky solve of the same M; the NaN-pivot policy on
        Humanoid's tree and BallBalance's forest (one indefinite env: NaN
        in its env only, every other env bit for bit the clean run); at
-       (Humanoid, 4096), (BallBalance, 128) and (ShadowHand, 1024) the
-       times of both kernels
+       (Humanoid, 4096), (BallBalance, 128) and (ShadowHand, 1024, 10000
+       and 16384) the times of both kernels
        against the path's plain version and the dense yardstick of the
        pair (cholesky_ex + cholesky_solve on the same systems made dense,
        env-first); and at Humanoid's, BallBalance's, Anymal's and Ant's
@@ -50,8 +51,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
        passes of the impulse contact pass (csrc/tree_half.cu: one thread
        per env and right-hand side, or the substitute's 16-lane pass below
        one walking warp an SM), on ShadowHand's dof tree at 1024
-       envs (K = 51, the 51 impulse rows, and K = 1) and at 10000 envs
-       (shadow_hand_more.yaml's width), a random 30-dof tree, odd env
+       envs (K = 51, the 51 impulse rows, and K = 1), at 10000 envs
+       (shadow_hand_more.yaml's width) and at 16384, a random 30-dof tree,
+       odd env
        counts and a 256-dof tree of 1,024 pairs (the wrappers' edge, 2
        right-hand sides a block), against their plain versions, with the
        NaN policy (an env whose H is NaN comes out non-finite, every
@@ -125,10 +127,23 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      89-dim obs, trainTrajLen 30, MDNN [128, 128] x 10, PPO [512, 256,
      128] with nsteps 8) for 2 ADR iterations (ADR_PHASES): checks the
      tree factor, substitute, upsolve and downsolve kernels and no SPD
-     kernel, and the same as phase 4; then 20 steps of
-     shadow_hand_grasp_full.yaml (2048 envs, the 211-dim full_state obs)
-     under its grasp policy: the obs and the force, torque and dof-force
-     blocks finite, and VecEnv.step's time graphed and eager;
+     kernel, and the same as phase 4; then the same for 1 ADR iteration
+     at the JAX package's own scale
+     (HAND_SCALE_PHASES, trainTrajs cut to 1000, the evaluation's 600-step
+     episodes uncut): 9a. shadow_hand_more.yaml at 10000 envs (111
+     params, 89-dim obs, PPO nsteps 8 x 10000 = 80,000 rows), 9b.
+     shadow_hand_grasp.yaml at 2048 envs (policy_grasp, which must run in
+     the collection's step bodies and only there, the 107-dim force-sensor
+     obs, 32 params); each [adr] line carries the peak device memory;
+     9c. one ShadowHand collection round at 16384 envs (shadow_hand.yaml,
+     episodes of 51, policy_random, the prior): 50 step replays against
+     the eager body bit for bit (trajectory, state leaves, obs, generator)
+     with equal launches, then the whole round's programs against their
+     bodies, with the step's wall and device ms and the peak memory;
+     then 20 steps of shadow_hand_grasp_full.yaml (2048 envs, the 211-dim
+     full_state obs) under its grasp policy: the obs and the force, torque
+     and dof-force blocks finite, and VecEnv.step's time graphed and
+     eager;
  10. path signatures on the card (summarizers/signature.py: plain
      einsum/cumsum, no kernel of their own) at cartpole_more.yaml's
      collection shape (10000 time-augmented paths of 20 steps, 6
@@ -231,13 +246,18 @@ TREE_RTOL, TREE_ATOL = 1e-4, 1e-5
 # lanes).
 TREE_SHAPES = [("humanoid", 4096), ("humanoid", 1), ("humanoid", 17),
                ("ball_balance", 128), ("ball_balance", 129),
-               ("shadow_hand", 1024), ("ant", 1024), ("random30", 1024),
+               ("shadow_hand", 1024), ("shadow_hand", 10000),
+               ("shadow_hand", 16384), ("ant", 1024), ("random30", 1024),
                ("ant", 1025), ("random30", 1027), ("chain40", 1027)]
 # The trees the ADR paths factor, timed: Humanoid's (the kernels line's
-# own times), BallBalance's and ShadowHand's.
+# own times), BallBalance's and ShadowHand's at its three widths
+# (shadow_hand.yaml's 1024 envs, shadow_hand_more.yaml's 10000 and the
+# 16384 of the collection round of phase 9c).
 TREE_PATHS = {("humanoid", 4096): "Humanoid",
               ("ball_balance", 128): "BallBalance",
-              ("shadow_hand", 1024): "ShadowHand"}
+              ("shadow_hand", 1024): "ShadowHand",
+              ("shadow_hand", 10000): "ShadowHand (shadow_hand_more.yaml)",
+              ("shadow_hand", 16384): "ShadowHand (16384 envs)"}
 TREE_MAIN = ("humanoid", 4096)
 # The NaN-pivot policy on Humanoid's tree and on BallBalance's forest.
 TREE_NAN = [("humanoid", 4096), ("ball_balance", 128), ("ball_balance", 129)]
@@ -250,20 +270,24 @@ TREE_RHS = 4
 # The half-solves at the impulse pass's shapes, (tree, N, K): ShadowHand's
 # tree at its 1024 envs with K = 51 (the 35 normal and 16 friction rows,
 # up-solved once a control step) and K = 1 (the down-solve of every
-# substep), the same at shadow_hand_more.yaml's 10000 envs; then a random
+# substep), the same at shadow_hand_more.yaml's 10000 envs and at the
+# 16384 envs of phase 9c's collection round; then a random
 # 30-dof tree, env counts that leave a partial block (32 envs a block),
 # and the wrappers' edge: a 256-dof tree of 1,024 pairs at 333 envs, K 13
 # (2 right-hand sides a block: the last block holds one).
 HALF_SHAPES = [("shadow_hand", 1024, 51), ("shadow_hand", 1024, 1),
                ("shadow_hand", 10000, 51), ("shadow_hand", 10000, 1),
+               ("shadow_hand", 16384, 51), ("shadow_hand", 16384, 1),
                ("random30", 1027, 4), ("shadow_hand", 1025, 3),
                ("shadow_hand", 17, 51), ("edge256", 333, 13)]
 # The shapes each entry point is timed at (the kernels line's own times
 # are the first): the upsolve at K = 51, the downsolve at K = 1.
 HALF_TIMED = {"upsolve": [("shadow_hand", 1024, 51),
-                          ("shadow_hand", 10000, 51)],
+                          ("shadow_hand", 10000, 51),
+                          ("shadow_hand", 16384, 51)],
               "downsolve": [("shadow_hand", 1024, 1),
-                            ("shadow_hand", 10000, 1)]}
+                            ("shadow_hand", 10000, 1),
+                            ("shadow_hand", 16384, 1)]}
 
 
 def phase_device():
@@ -1001,7 +1025,8 @@ def _read_launches():
 
 
 # The collection step's device ms at each task's ADR width (phase 4), by
-# task: an ADR phase's replay count times it is its replays' device time.
+# (task, numEnvs): an ADR phase's replay count times it is its replays'
+# device time (not measured at a width phase 4 does not run).
 STEP_DEV_MS = {}
 
 
@@ -1027,11 +1052,12 @@ class _PhaseTimer:
     _PROGRAMS = {"reset": "reset", "collect": "replays",
                  "extract": "extract"}
 
-    def __init__(self, task=None):
+    def __init__(self, task=None, envs=None):
+        self.peak = None  # (allocated, reserved) bytes, set by _run_adr
         self.secs = collections.defaultdict(float)
         self.parts = collections.defaultdict(float)
         self.replays = 0
-        self.step_dev_ms = STEP_DEV_MS.get(task)
+        self.step_dev_ms = STEP_DEV_MS.get((task, envs))
         self._open = []  # seconds of the pieces nested in each open piece
         self._in_collect = False
         self._in_predict = False
@@ -1189,9 +1215,12 @@ class _PhaseTimer:
             f"{k} {v:.2f} s" + (f" ({replays} replays, device {dev})"
                                 if k == "replays" else "")
             for k, v in parts.items())
+        peak = ("" if self.peak is None else
+                f"; peak device memory {self.peak[0] / 2**30:.2f} GiB "
+                f"allocated, {self.peak[1] / 2**30:.2f} GiB reserved")
         return (", ".join(f"{k} {v:.2f} s" for k, v in self.secs.items())
                 + f"; collect: {collect}"
-                + (f"; {graphs}" if graphs else ""))
+                + (f"; {graphs}" if graphs else "") + peak)
 
 
 def _run_main(task, cfg, name, timer=None):
@@ -1221,12 +1250,16 @@ def _run_adr(task, cfg, name, iters=2):
     from bayes_sim_ig_tpu_torch.utils import step_graph
     step_graph.STATS.clear()
     gc.collect()  # the garbage of earlier phases, graphs included
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     _reset_launches()
     t0 = time.perf_counter()
-    timer = _PhaseTimer(task)
+    timer = _PhaseTimer(task, cfg["env"]["numEnvs"])
     out = _run_main(task, cfg, name, timer)
     secs = time.perf_counter() - t0
     launches = _read_launches()
+    timer.peak = (torch.cuda.max_memory_allocated(),
+                  torch.cuda.max_memory_reserved())
     # The collection rounds (reset, steps, extraction), the PPO rollouts
     # and updates and the MDN fits ran as graph replays, and the loop freed
     # every graph it captured.
@@ -1590,7 +1623,7 @@ def step_graph_check(task_name, stem, envs, edits):
     cload()
     c_dev, c_ops = _device_profile(cg.step, n=GRAPH_STEPS)
     if c_dev is not None:
-        STEP_DEV_MS[task_name] = c_dev
+        STEP_DEV_MS[(task_name, envs)] = c_dev
 
     post = _posterior(spec)
     env.set_distr(post)
@@ -2130,6 +2163,22 @@ ADR_PHASES = [
      "summary_corrdiff", _TREE + _HALF, 1000, {}, 2),
 ]
 
+# Phases 9a and 9b: ShadowHand at the JAX package's own scale, as
+# ADR_PHASES' entries with the obs width and the collection policy:
+# shadow_hand_more.yaml (10000 envs, 111 params, 89-dim obs, trainTrajLen
+# 50, PPO nsteps 8 x 10000 = 80,000 rows) and shadow_hand_grasp.yaml
+# (2048 envs, policy_grasp, the 107-dim force-sensor obs, the grasp DR
+# layout's 32 params), 1 ADR iteration each with trainTrajs cut to 1000
+# (one collection round; of 20000 and 4000) and 5 PPO iterations; the
+# evaluation's 600-step episodes uncut.
+HAND_SCALE_PHASES = [
+    (("ShadowHand", "shadow_hand_more", 10000, 111, [512, 256, 128], 8, 50,
+      "summary_corrdiff", _TREE + _HALF, 1000, {}, 1), 89,
+     "policy_rl_randomized"),
+    (("ShadowHand", "shadow_hand_grasp", 2048, 32, [512, 256, 128], 8, 30,
+      "summary_corrdiff", _TREE + _HALF, 1000, {}, 1), 107, "policy_grasp"),
+]
+
 # The tasks of the step-graph phase: (task, config stem, numEnvs, env
 # edits), the ADR phases' widths and cuts. ShadowHand runs with the
 # asymmetric critic (no shipped config sets it), so that its privileged
@@ -2142,13 +2191,16 @@ GRAPH_TASKS = [("Cartpole", "cartpole", 512, {}),
 
 
 def phase_adr(task, stem, envs, dim, widths, nsteps, traj_len, summarizer,
-              kernels, train_trajs, env_edits, iters):
-    """One of ADR_PHASES at full width (cfg/<stem>.yaml and
-    cfg/train/ppo_<stem>.yaml), cut in depth only (see ADR_PHASES): checks
-    the widths, that its physics launched exactly the kernels of its solve
-    (the SPD factor and substitute on the dense path, the tree kernels on
-    Humanoid's tree and BallBalance's forest, with the half-solves on
-    ShadowHand's) and no other, the posteriors and the card."""
+              kernels, train_trajs, env_edits, iters, obs=None, cpol=None):
+    """One of ADR_PHASES (or HAND_SCALE_PHASES, with the obs width ``obs``
+    and the collection policy ``cpol`` checked) at full width
+    (cfg/<stem>.yaml and cfg/train/ppo_<task>.yaml), cut in depth only
+    (see ADR_PHASES): checks the widths, that its physics launched exactly
+    the kernels of its solve (the SPD factor and substitute on the dense
+    path, the tree kernels on Humanoid's tree and BallBalance's forest,
+    with the half-solves on ShadowHand's) and no other, the posteriors and
+    the card."""
+    from bayes_sim_ig_tpu_torch.utils import collect
     from bayes_sim_ig_tpu_torch.utils.args import load_config
     cfg = load_config(os.path.join(HERE, "bayes_sim_ig_tpu_torch", "cfg",
                                    f"{stem}.yaml"))
@@ -2159,7 +2211,24 @@ def phase_adr(task, stem, envs, dim, widths, nsteps, traj_len, summarizer,
     assert bs["modelClass"] == "MDNN" and bs["components"] == 10
     assert bs["hiddenLayers"] == [128, 128]
     assert bs["summarizerFxn"] == summarizer
-    out, launches, secs, timer = _run_adr(task, cfg, stem, iters)
+    assert cpol is None or bs["collectPolicy"] == cpol
+    # policy_grasp is called (by the step's eager body and its capture) only
+    # where a collection step graph holds it.
+    grasp_calls = [0]
+    policy_grasp = collect.policy_grasp
+
+    def counted(*args):
+        grasp_calls[0] += 1
+        return policy_grasp(*args)
+    collect.policy_grasp = counted
+    try:
+        out, launches, secs, timer = _run_adr(task, cfg, stem, iters)
+    finally:
+        collect.policy_grasp = policy_grasp
+    if (cpol == "policy_grasp") != (grasp_calls[0] > 0):
+        raise AssertionError(f"{stem}: policy_grasp ran in "
+                             f"{grasp_calls[0]} step bodies under "
+                             f"collectPolicy {bs['collectPolicy']}")
     others = [k for k in launches if k not in kernels]
     for entry in kernels:
         if launches[entry] <= 0:
@@ -2179,9 +2248,11 @@ def phase_adr(task, stem, envs, dim, widths, nsteps, traj_len, summarizer,
     assert [l.out_features for l in ppo.net.actor][:3] == widths
     assert ppo.nsteps == nsteps and ppo.activation == "elu"
     if task == "ShadowHand":
-        assert env.task.obs_dim == 89 and env.task.act_dim == 20
-    print(f"[adr] {task} {envs} envs, nv {env.task.model.nv}, {iters} ADR "
-          f"iteration(s) in {secs:.2f} s (per iteration: "
+        assert env.task.obs_dim == (obs or 89) and env.task.act_dim == 20
+    print(f"[adr] {task} ({stem}.yaml, {bs['collectPolicy']}"
+          f"{f' in {grasp_calls[0]} step bodies' if grasp_calls[0] else ''}"
+          f", obs {env.task.obs_dim}) {envs} envs, nv {env.task.model.nv}, "
+          f"{iters} ADR iteration(s) in {secs:.2f} s (per iteration: "
           f"{', '.join(f'{s:.2f}' for s in out['iter_secs'])} s; phases: "
           f"{timer.line()}); launches {launches}; {dim}-dim posteriors "
           f"finite; model, refit, policy and env tensors on cuda",
@@ -2230,6 +2301,74 @@ def phase_grasp_full_probe(steps=20):
           f"{float(st.tip_torque.abs().max()):.4f}, dof force |max| "
           f"{float(st.dof_force.abs().max()):.3f}, all finite; "
           f"{_step_line(step)}", flush=True)
+
+
+def phase_hand_round(envs=16384, mel=51):
+    """Phase 9c: ShadowHand (shadow_hand.yaml) at 16384 envs, episodes of
+    51 (bench.py's collection round: policy_random, the prior): the 50 step
+    replays against 50 calls of the eager body from one state and
+    generator, bit for bit (trajectory, state leaves, obs, generator) with
+    equal launches, then a whole round (reset, 50 steps, extraction)
+    through its programs against their eager bodies (``round_check``);
+    the step's wall ms graphed and eager, its device ms and operations,
+    the captures' seconds and the peak device memory."""
+    from bayes_sim_ig_tpu_torch.distributions import Uniform, to_device_distr
+    from bayes_sim_ig_tpu_torch.rl.ppo import process_ppo
+    from bayes_sim_ig_tpu_torch.sim import make_env
+    from bayes_sim_ig_tpu_torch.sim.task import env_full_reset
+    from bayes_sim_ig_tpu_torch.utils.args import load_config
+    from bayes_sim_ig_tpu_torch.utils.collect import (
+        collect_step_graph, get_collect_policy,
+    )
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg_dir = os.path.join(HERE, "bayes_sim_ig_tpu_torch", "cfg")
+    cfg = load_config(os.path.join(cfg_dir, "shadow_hand.yaml"))
+    cfg["env"]["numEnvs"] = envs
+    env = make_env("ShadowHand", cfg, seed=0, device="cuda:0")
+    ppo = process_ppo(env, load_config(os.path.join(
+        cfg_dir, "train", "ppo_shadow_hand.yaml")),
+        logdir=os.path.join(RUN_DIR, "hand_round"), seed=0)
+    task, spec = env.task, env.task.params_spec
+    cpol = get_collect_policy("policy_random", task)
+    prior = to_device_distr(Uniform(spec.lows, spec.highs), device="cuda:0")
+    st0, obs0 = env_full_reset(task, prior, ppo.gen)
+    cg = collect_step_graph(env, ppo.policy_apply, cpol, mel, ppo.net,
+                            prior, ppo.gen, st0, obs0)
+
+    def cload():
+        cg.load(st0, obs0, prior)
+    diffs, g_l, e_l, g_ms, e_ms = _graph_vs_eager(cg, cload, [ppo.gen],
+                                                  mel - 1)
+    if diffs:
+        raise AssertionError(f"ShadowHand {envs} envs: graph and eager "
+                             f"differ in {_diff_line(diffs)}")
+    if g_l != e_l:
+        raise AssertionError(f"ShadowHand {envs} envs: launches of the "
+                             f"replays {g_l} != eager {e_l}")
+    cload()
+    dev, ops = _device_profile(cg.step, n=10)
+    rnd = round_check(env, ppo, cpol, mel, prior)
+    peak = torch.cuda.max_memory_allocated()
+    busy = "not measured" if dev is None else f"{dev / g_ms:.3f}"
+    print(f"[hand-round] ShadowHand (shadow_hand.yaml) {envs} envs, "
+          f"nv {task.model.nv}: collection (policy_random, prior, episodes "
+          f"of {mel}) {mel - 1} replays equal their eager bodies bit for bit"
+          f" (trajectory, {len(_state_leaves(cg.state))} state leaves, obs,"
+          f" generator); launches of {mel - 1} replays {g_l} == eager; a "
+          f"whole round (reset, {mel - 1} steps, extraction; "
+          f"{rnd['arrays']} arrays) through its programs equal to their "
+          f"bodies, {rnd['wall_s']:.3f} s against {rnd['eager_s']:.3f} s; "
+          f"step graphed {g_ms:.3f} ms wall against eager {e_ms:.2f} ms, "
+          f"device {_fmt(dev)} ({ops} device operations, busy share "
+          f"{busy}), captured in {cg.capture_s:.3f} s (round programs "
+          f"{rnd['capture_s']:.3f} s); peak device memory "
+          f"{peak / 2**30:.2f} GiB allocated; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    ppo.free_update_graphs()
+    env.free_step_graphs()
 
 
 def _level_check(name, got, want, d, depth):
@@ -2402,6 +2541,9 @@ def main():
     phase_adr_pendulum()
     for spec in rest:
         runs[spec[0]] = phase_adr(*spec)
+    for spec, obs, cpol in HAND_SCALE_PHASES:
+        runs[f"ShadowHand {spec[1]}"] = phase_adr(*spec, obs=obs, cpol=cpol)
+    phase_hand_round()
     phase_grasp_full_probe()
     phase_signature()
     runs["cartpole_more"] = phase_adr_cartpole_more()

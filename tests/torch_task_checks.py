@@ -164,18 +164,19 @@ def render_matches_jax(task_name, stem, jax_task):
 
 
 def tiny_adr_run(task_name, stem, tmp_path, monkeypatch, env_edits,
-                 num_envs=8):
+                 num_envs=8, bayessim_edits=None):
     """bayes_sim_main.main on a tiny config (``num_envs`` envs, 16 training
-    trajectories, 2 evaluation episodes, 1 PPO iteration): one ADR
-    iteration through the physics, MDNN and PPO on the CPU; a finite
-    posterior of the spec's dims on disk, no kernel launched. Returns the
-    run's output."""
+    trajectories, 2 evaluation episodes, 1 PPO iteration, then
+    ``bayessim_edits``): one ADR iteration through the physics, MDNN and
+    PPO on the CPU; a finite posterior of the spec's dims on disk, no
+    kernel launched. Returns the run's output."""
     from bayes_sim_ig_tpu_torch import bayes_sim_main
     monkeypatch.setattr(bayes_sim_main, "_plot_posterior",
                         lambda *a, **k: None)
     cfg = load_cfg(stem, num_envs)
     cfg["env"].update(env_edits)
     cfg["bayessim"].update(trainTrajs=16, realIters=1, realEvals=2)
+    cfg["bayessim"].update(bayessim_edits or {})
     cfg_path = tmp_path / f"{stem}.yaml"
     with open(cfg_path, "w") as f:
         yaml.safe_dump(cfg, f, sort_keys=False)
