@@ -154,8 +154,11 @@ def setup_parallelism(num_envs, device="cuda"):
 
 def main(argv=None):
     """Runs the ADR loop; returns a dict with the final ``bsim``, ``ppo``,
-    ``env``, ``posterior``, the run's ``logdir`` and the seconds of each
-    ADR iteration (``iter_secs``). Ranks other than 0 print nothing."""
+    ``env``, ``posterior``, the run's ``logdir``, the seconds of each
+    ADR iteration (``iter_secs``; none under ``modelClass: None``) and the
+    surrogate-real evaluation of each (``real_rewards``: its ``mean``,
+    ``min`` and ``max``, as logged under ``SurrogateReal/``). Ranks other
+    than 0 print nothing."""
     args, cfg_env, cfg_train = init_args(argv)
     had_group = dist.is_available() and dist.is_initialized()
     num_envs = int(cfg_env["env"]["numEnvs"])
@@ -255,6 +258,7 @@ def _adr_loop(args, cfg_env, cfg_train, device):
                     and is_main_process() else None)
     prof = None
     iter_secs_all = []
+    real_rewards_all = []
     for real_iter_id in range(start_iter, bs_cfg["realIters"]):
         t_iter = time.time()
         if real_iter_id == profile_iter:
@@ -287,9 +291,11 @@ def _adr_loop(args, cfg_env, cfg_train, device):
             bs_cfg["realEvals"], ppo, None, max_traj_len=None,
             visualize=True)
         real_rwds = real_rwds.cpu().numpy()
-        for fxn in ("mean", "min", "max"):
-            writer.add_scalar("SurrogateReal/real_rewards_" + fxn,
-                              float(getattr(np, fxn)(real_rwds)),
+        real_rewards = {fxn: float(getattr(np, fxn)(real_rwds))
+                        for fxn in ("mean", "min", "max")}
+        real_rewards_all.append(real_rewards)
+        for fxn, value in real_rewards.items():
+            writer.add_scalar("SurrogateReal/real_rewards_" + fxn, value,
                               real_iter_id)
         _write_video(writer, real_imgs, real_iter_id)
         if bs_cfg["modelClass"] == "None":
@@ -365,7 +371,7 @@ def _adr_loop(args, cfg_env, cfg_train, device):
     rl_writer.close()
     return {"bsim": bsim, "ppo": ppo, "env": env,
             "posterior": sim_params_distr, "logdir": args.logdir,
-            "iter_secs": iter_secs_all}
+            "iter_secs": iter_secs_all, "real_rewards": real_rewards_all}
 
 
 def _write_video(writer, imgs, step):

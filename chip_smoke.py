@@ -140,6 +140,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      the eager body bit for bit (trajectory, state leaves, obs, generator)
      with equal launches, then the whole round's programs against their
      bodies, with the step's wall and device ms and the peak memory;
+     9d. the grasp-ADR experiment's pair (experiments/
+     adr_grasp_vs_ctl_torch.py::run_pair, seed 7) at full width
+     (shadow_hand_grasp.yaml, 2048 envs, realEvals 400) cut in depth
+     only (realIters 3, 5 PPO iterations): the control arm (modelClass
+     None) builds no BayesSim, fits nothing, writes no posterior, captures
+     no rollout or update program after its first PPO run and
+     returns 3 finite surrogate-real means; the grasp arm replays its
+     fits and writes finite posteriors; both launch the tree kernels and
+     half-solves only and free every graph; allocated memory (without
+     cuBLAS's per-stream workspaces) comes back within 64 MiB;
+     experiments/adr_pooled_analysis.py reads the pair;
      then 20 steps of shadow_hand_grasp_full.yaml (2048 envs, the 211-dim
      full_state obs) under its grasp policy: the obs and the force, torque
      and dof-force blocks finite, and VecEnv.step's time graphed and
@@ -182,6 +193,8 @@ import collections
 import concurrent.futures
 import contextlib
 import gc
+import glob
+import io
 import json
 import os
 import pickle
@@ -2260,6 +2273,114 @@ def phase_adr(task, stem, envs, dim, widths, nsteps, traj_len, summarizer,
     return launches
 
 
+def _allocated():
+    """Allocated bytes after a garbage collection, with and without
+    cuBLAS's workspaces: PyTorch keeps one for each stream that ran a
+    cuBLAS call, and each capture runs on a side stream of the pool."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    with_ws = torch.cuda.memory_allocated()
+    torch._C._cuda_clearCublasWorkspaces()
+    return with_ws, torch.cuda.memory_allocated()
+
+
+def phase_adr_pair(seed=7, iters=3):
+    """Phase 9d: the grasp-ADR experiment's two arms through
+    ``run_pair`` (each through ``bayes_sim_main.main``) at full width, cut
+    in depth only (``iters`` ADR iterations of 5 PPO iterations,
+    realEvals 400), into a temporary dir under runs/chip_smoke; then the
+    pooled analysis on the pair's two JSON files. Returns {arm: launches}
+    (each arm's count, with every count set to 0 before the pair)."""
+    import tempfile
+    sys.path.insert(0, os.path.join(HERE, "experiments"))
+    import adr_grasp_vs_ctl_torch as pair
+    import adr_pooled_analysis
+    from bayes_sim_ig_tpu_torch.utils import step_graph
+    before = _allocated()[1]
+    os.makedirs(RUN_DIR, exist_ok=True)
+    _reset_launches()
+    with tempfile.TemporaryDirectory(dir=RUN_DIR) as tmp:
+        t0 = time.perf_counter()
+        results = pair.run_pair(
+            seed, 400, "cuda:0", {"bayessim": {"realIters": iters}},
+            max_iterations=5, runs_dir=os.path.join(tmp, "runs"),
+            data_dir=tmp, keep=True)
+        secs = time.perf_counter() - t0
+        launches = {}
+        for arm, (out, rec, _) in results.items():
+            if rec["error"]:
+                raise AssertionError(f"the {arm} arm raised:\n"
+                                     f"{rec['error']}")
+            assert out["env"].num_envs == 2048
+            assert out["env"].task.obs_dim == 107
+            assert out["env"].task.params_spec.dim == 32
+            rewards = out["real_rewards"]
+            if len(rewards) != iters or not all(
+                    np.isfinite(list(r.values())).all() for r in rewards):
+                raise AssertionError(f"{arm}: real_rewards {rewards}")
+            stats = rec["graph_stats"]
+            for phase in ("rollout", "update", "collect"):
+                if stats.get(phase, {}).get("replays", 0) <= 0:
+                    raise AssertionError(f"{arm}: no {phase} replay")
+            if rec["live_graphs"] or out["env"].step_graphs:
+                raise AssertionError(f"{arm}: graphs kept: "
+                                     f"{rec['live_graphs']}")
+            for entry, count in rec["launches"].items():
+                if (count > 0) != (entry in _TREE + _HALF):
+                    raise AssertionError(f"{arm}: {entry} launched {count} "
+                                         f"times")
+            posteriors = glob.glob(os.path.join(out["logdir"], "**",
+                                                "posterior_*.pkl"),
+                                   recursive=True)
+            if arm == "drctl":
+                # No BayesSim, no fit and no posterior; the PPO restarts
+                # reuse the first iteration's captures.
+                assert out["bsim"] is None and out["iter_secs"] == []
+                assert not posteriors, posteriors
+                assert stats.get("fit", {}).get("replays", 0) == 0, stats
+                first = rec["iterations"][0]["captures"]
+                for phase in ("rollout", "update"):
+                    if stats[phase]["captures"] != first[phase]:
+                        raise AssertionError(
+                            f"drctl: {phase} captures {first[phase]} after "
+                            f"the first PPO run, {stats[phase]['captures']} "
+                            f"after {iters}")
+            else:
+                assert stats.get("fit", {}).get("replays", 0) > 0, stats
+                assert len(posteriors) == iters, posteriors
+                for path in posteriors:
+                    with open(path, "rb") as f:
+                        post = pickle.load(f)
+                    for k in ("weights", "means", "covs"):
+                        if not np.isfinite(post[k]).all():
+                            raise AssertionError(f"grasp {path} {k} is not "
+                                                 f"finite")
+            launches[arm] = rec["launches"]
+            print(f"[adr pair] {pair.summary(rec)}; launches "
+                  f"{ {k: v for k, v in rec['launches'].items() if v} }",
+                  flush=True)
+        total = _read_launches()
+        for entry, count in total.items():
+            assert count == sum(c[entry] for c in launches.values()), (
+                entry, count, launches)
+        paths = ":".join(results[arm][2] for arm in ("grasp", "drctl"))
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            adr_pooled_analysis.main([paths])
+        del results, out
+    with_ws, after = _allocated()
+    if after - before > 64 * 2**20:
+        raise AssertionError(f"the pair left {(after - before) / 2**20:.1f} "
+                             f"MiB allocated")
+    print(f"[adr pair] seed {seed}, {iters} ADR iterations an arm in "
+          f"{secs:.2f} s; live graphs {step_graph.live_graphs()}; "
+          f"allocated {(after - before) / 2**20:+.1f} MiB after the pair "
+          f"({(with_ws - before) / 2**20:+.1f} with cuBLAS's workspaces); "
+          f"analysis: {log.getvalue().strip().rsplit(' | ', 1)[-1]}",
+          flush=True)
+    return launches
+
+
 def phase_grasp_full_probe(steps=20):
     """20 steps of cfg/shadow_hand_grasp_full.yaml at its 2048 envs (the
     211-dim full_state obs: dof forces, fingertip states and force/torque
@@ -2544,6 +2665,8 @@ def main():
     for spec, obs, cpol in HAND_SCALE_PHASES:
         runs[f"ShadowHand {spec[1]}"] = phase_adr(*spec, obs=obs, cpol=cpol)
     phase_hand_round()
+    for arm, launches in phase_adr_pair().items():
+        runs[f"ShadowHand grasp pair {arm}"] = launches
     phase_grasp_full_probe()
     phase_signature()
     runs["cartpole_more"] = phase_adr_cartpole_more()
