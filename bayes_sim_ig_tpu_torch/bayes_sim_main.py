@@ -57,6 +57,7 @@ from .utils.collect import (collect_trajectories,  # noqa: E402
                             get_collect_policy)
 from .utils.convert import (mdnn_params_from_jax,  # noqa: E402
                             mdnn_params_to_jax)
+from .utils import trace  # noqa: E402
 
 
 class _NullWriter:
@@ -110,16 +111,28 @@ def _plot_posterior(writer, step, spec, real_params_distr, posterior):
 
 
 def _start_profile():
+    """Starts a ``torch.profiler`` trace with the port's tracing on, so
+    that the trace holds the program's spans; returns (profiler, whether
+    tracing was on before)."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     prof = torch.profiler.profile(activities=acts)
     prof.start()
-    return prof
+    was_on = trace.ENABLED
+    trace.enable()
+    return prof, was_on
 
 
-def _stop_profile(prof, logdir):
+def _stop_profile(profiling, logdir):
+    """Stops the trace and writes it; tracing that ``--profile`` turned on
+    goes off again, and its records go (the trace holds the spans)."""
+    prof, was_on = profiling
+    if not was_on:
+        trace.disable()
     prof.stop()
+    if not was_on:
+        trace.reset()
     out = os.path.join(logdir, "profile")
     os.makedirs(out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out, "trace.json"))
@@ -256,54 +269,55 @@ def _adr_loop(args, cfg_env, cfg_train, device):
 
     profile_iter = (start_iter if getattr(args, "profile", False)
                     and is_main_process() else None)
-    prof = None
     iter_secs_all = []
     real_rewards_all = []
-    for real_iter_id in range(start_iter, bs_cfg["realIters"]):
-        t_iter = time.time()
-        if real_iter_id == profile_iter:
-            prof = _start_profile()
+
+    def iteration(real_iter_id):
+        """One ADR iteration up to its new posterior; False where the
+        config is pure DR (``modelClass: None``), which fits nothing."""
+        nonlocal rl_writer, bsim, sim_params_distr
+        nonlocal all_real_states, all_real_actions
         _plot_posterior(writer, real_iter_id, spec, real_params_distr,
                         sim_params_distr)
 
         # ---- Train RL on the current posterior. ---------------------- #
         print("============= Train RL before real_iter_id", real_iter_id)
-        set_env_distr(sim_params_distr)
-        if not ftune_rl and real_iter_id > 0:
-            # Restart RL from scratch by re-initializing the trainer.
-            ppo_logdir = os.path.join(args.logdir, f"rl_{real_iter_id}")
-            rl_writer.close()
-            rl_writer = _make_writer(args.logdir, f"rl_{real_iter_id}")
-            ppo.reinit(seed=args.seed + real_iter_id, logdir=ppo_logdir,
-                       writer=rl_writer)
-            ppo.run(num_learning_iterations=args.max_iterations,
-                    log_interval=cfg_train["learn"].get("save_interval", 50))
-        else:
-            ppo_it = real_iter_id * args.max_iterations
-            ppo.current_learning_iteration = ppo_it
-            ppo.run(num_learning_iterations=ppo_it + args.max_iterations,
-                    log_interval=cfg_train["learn"].get("save_interval", 50))
+        with trace.span("adr.rl"):
+            set_env_distr(sim_params_distr)
+            if not ftune_rl and real_iter_id > 0:
+                # Restart RL from scratch by re-initializing the trainer.
+                ppo_logdir = os.path.join(args.logdir, f"rl_{real_iter_id}")
+                rl_writer.close()
+                rl_writer = _make_writer(args.logdir, f"rl_{real_iter_id}")
+                ppo.reinit(seed=args.seed + real_iter_id, logdir=ppo_logdir,
+                           writer=rl_writer)
+                ppo.run(num_learning_iterations=args.max_iterations,
+                        log_interval=cfg_train["learn"].get("save_interval",
+                                                            50))
+            else:
+                ppo_it = real_iter_id * args.max_iterations
+                ppo.current_learning_iteration = ppo_it
+                ppo.run(num_learning_iterations=ppo_it + args.max_iterations,
+                        log_interval=cfg_train["learn"].get("save_interval",
+                                                            50))
 
         # ---- Surrogate-real evaluation. ------------------------------ #
         print("Simulating evals...")
-        set_env_distr(real_params_distr)
-        _, _, _, real_rwds, real_imgs = collect_trajectories(
-            bs_cfg["realEvals"], ppo, None, max_traj_len=None,
-            visualize=True)
-        real_rwds = real_rwds.cpu().numpy()
-        real_rewards = {fxn: float(getattr(np, fxn)(real_rwds))
-                        for fxn in ("mean", "min", "max")}
+        with trace.span("adr.evaluate"):
+            set_env_distr(real_params_distr)
+            _, _, _, real_rwds, real_imgs = collect_trajectories(
+                bs_cfg["realEvals"], ppo, None, max_traj_len=None,
+                visualize=True)
+            real_rwds = real_rwds.cpu().numpy()
+            real_rewards = {fxn: float(getattr(np, fxn)(real_rwds))
+                            for fxn in ("mean", "min", "max")}
         real_rewards_all.append(real_rewards)
         for fxn, value in real_rewards.items():
             writer.add_scalar("SurrogateReal/real_rewards_" + fxn, value,
                               real_iter_id)
         _write_video(writer, real_imgs, real_iter_id)
         if bs_cfg["modelClass"] == "None":
-            # Ablation: pure DR without BayesSim.
-            if prof is not None:
-                _stop_profile(prof, args.logdir)
-                prof = None
-            continue
+            return False
 
         # ---- Collect randomized rollouts, train BayesSim. ------------ #
         print(f"Start BayesSim {bs_cfg['modelClass']} iter {real_iter_id}")
@@ -315,14 +329,18 @@ def _adr_loop(args, cfg_env, cfg_train, device):
         n_trajs_done = 0
         log_bsim = None
         print("Will train BayesSim on", n_train_trajs, "trajs")
+        chunk = 0
         while n_trajs_done < n_train_trajs:
             n_batch = BayesSim.get_n_trajs_per_batch(n_train_trajs,
                                                      n_trajs_done)
-            sim_prms, sim_states, sim_acts, *_ = collect_trajectories(
-                n_batch, ppo, collect_policy_fxn,
-                max_traj_len=bs_cfg["trainTrajLen"])
-            log_bsim = bsim.run_training(sim_prms, sim_states, sim_acts)
+            with trace.span("adr.collect_train", chunk=chunk):
+                sim_prms, sim_states, sim_acts, *_ = collect_trajectories(
+                    n_batch, ppo, collect_policy_fxn,
+                    max_traj_len=bs_cfg["trainTrajLen"])
+            with trace.span("adr.fit", chunk=chunk):
+                log_bsim = bsim.run_training(sim_prms, sim_states, sim_acts)
             n_trajs_done += n_batch
+            chunk += 1
             print(f"n_trajs_done {n_trajs_done} (of {n_train_trajs}) "
                   f"loss train {log_bsim['train_loss'][-1]:.4f} "
                   f"test {log_bsim['test_loss'][-1]:.4f}")
@@ -335,22 +353,33 @@ def _adr_loop(args, cfg_env, cfg_train, device):
 
         # ---- Surrogate-real trajectories -> new posterior. ----------- #
         print("Simulating surrogate real runs...")
-        set_env_distr(real_params_distr)
-        _, real_states, real_actions, *_ = collect_trajectories(
-            bs_cfg["realTrajs"], ppo, collect_policy_fxn,
-            max_traj_len=bs_cfg["trainTrajLen"])
-        real_states = real_states.cpu().numpy()
-        real_actions = real_actions.cpu().numpy()
+        with trace.span("adr.collect_real"):
+            set_env_distr(real_params_distr)
+            _, real_states, real_actions, *_ = collect_trajectories(
+                bs_cfg["realTrajs"], ppo, collect_policy_fxn,
+                max_traj_len=bs_cfg["trainTrajLen"])
+            real_states = real_states.cpu().numpy()
+            real_actions = real_actions.cpu().numpy()
         if all_real_states is None:
             all_real_states, all_real_actions = real_states, real_actions
         else:
             all_real_states = np.concatenate([all_real_states, real_states])
             all_real_actions = np.concatenate(
                 [all_real_actions, real_actions])
-        sim_params_distr = bsim.predict(all_real_states, all_real_actions)
+        with trace.span("adr.posterior"):
+            sim_params_distr = bsim.predict(all_real_states,
+                                            all_real_actions)
+        return True
+
+    for real_iter_id in range(start_iter, bs_cfg["realIters"]):
+        t_iter = time.time()
+        prof = _start_profile() if real_iter_id == profile_iter else None
+        with trace.span("adr.iteration", iteration=real_iter_id):
+            fitted = iteration(real_iter_id)
         if prof is not None:
             _stop_profile(prof, args.logdir)
-            prof = None
+        if not fitted:
+            continue  # Ablation: pure DR without BayesSim.
         iter_secs = time.time() - t_iter
         iter_secs_all.append(iter_secs)
         writer.add_scalar("perf/sec_per_adr_iter", iter_secs, real_iter_id)

@@ -8,6 +8,9 @@ multi-real-trajectory posterior combination (resample 1e4 points from the
 per-trajectory mixtures, fit an unconditional MDNN, read off its single
 conditional mixture). Every model tensor lives on ``device``, the refit's
 included: the card unless the caller asks for the CPU (``device="cpu"``).
+While tracing is on (``utils/trace.py``) the summaries, the fit, the
+posterior and its refit are spans (``bsim.summarize``, ``bsim.fit``,
+``bsim.predict``, ``bsim.refit``).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 from .distributions import pdf
 from .models import MDNN, get_model_class
 from .summarizers import get_summarizer
+from .utils import trace
 from .utils.device import resolve_device
 
 
@@ -93,8 +97,9 @@ class BayesSim:
 
     def run_training(self, params, traj_states, traj_actions):
         """Summarizes one chunk of rollouts and trains the model on it."""
-        traj_summaries = self.summarizer_fxn(self._tensor(traj_states),
-                                             self._tensor(traj_actions))
+        with trace.span("bsim.summarize"):
+            traj_summaries = self.summarizer_fxn(self._tensor(traj_states),
+                                                 self._tensor(traj_actions))
         params = self._tensor(params)
         # Drop trajectories whose features or labels are non-finite (a
         # physics blow-up under extreme DR): one bad row would NaN the
@@ -113,59 +118,64 @@ class BayesSim:
                   "skipping the model update")
             nan = float("nan")
             return {"train_loss": [nan], "test_loss": [nan]}
-        return self.model.run_training(
-            x_data=traj_summaries, y_data=params,
-            n_updates=BayesSim.NUM_GRAD_UPDATES,
-            batch_size=BayesSim.MINIBATCH_SIZE,
-            test_frac=BayesSim.TEST_FRACTION)
+        with trace.span("bsim.fit"):
+            return self.model.run_training(
+                x_data=traj_summaries, y_data=params,
+                n_updates=BayesSim.NUM_GRAD_UPDATES,
+                batch_size=BayesSim.MINIBATCH_SIZE,
+                test_frac=BayesSim.TEST_FRACTION)
 
     def predict(self, states, actions, threshold=0.005):
         """Posterior over sim params given (surrogate-)real trajectories.
         With several trajectories, the per-trajectory mixtures are combined
         by resampling and refitting an unconditional MDNN."""
-        xs = self.summarizer_fxn(self._tensor(states), self._tensor(actions))
-        mogs = self.model.predict_MoGs(xs)
-        if self.proposal is not None:
-            for i, mog in enumerate(mogs):
-                mog.prune_negligible_components(threshold=threshold)
-                if isinstance(self.prior, pdf.Uniform):
-                    post = mog / self.proposal
-                elif isinstance(self.prior, pdf.Gaussian):
-                    post = (mog * self.prior) / self.proposal
-                else:
-                    raise NotImplementedError(
-                        f"prior type {type(self.prior)} unsupported")
-                mogs[i] = post
+        with trace.span("bsim.summarize"):
+            xs = self.summarizer_fxn(self._tensor(states),
+                                     self._tensor(actions))
+        with trace.span("bsim.predict"):
+            mogs = self.model.predict_MoGs(xs)
+            if self.proposal is not None:
+                for i, mog in enumerate(mogs):
+                    mog.prune_negligible_components(threshold=threshold)
+                    if isinstance(self.prior, pdf.Uniform):
+                        post = mog / self.proposal
+                    elif isinstance(self.prior, pdf.Gaussian):
+                        post = (mog * self.prior) / self.proposal
+                    else:
+                        raise NotImplementedError(
+                            f"prior type {type(self.prior)} unsupported")
+                    mogs[i] = post
         if len(mogs) == 1:
             return mogs[0]
         # Combine: resample the mixtures, fit a small unconditional MDNN on
         # the model's device. The instance is cached and re-initialized
         # per call, so its fit is captured once per BayesSim.
-        tot_smpls = int(1e4)
-        n_per_mog = tot_smpls // len(mogs)
-        mog_smpls = np.concatenate(
-            [mog.gen(n_samples=n_per_mog) for mog in mogs], axis=0)
-        if self._refit_model is None:
-            self._refit_model = MDNN(
-                input_dim=1, output_dim=self.model.output_dim,
-                output_lows=self.model.output_lows,
-                output_highs=self.model.output_highs,
-                n_gaussians=self.model.n_gaussians,
-                hidden_layers=(128, 128), lr=self.model.lr,
-                activation=self.model.activation,
-                # The reference passes `L_size > 0` here, which upgrades a
-                # diagonal-covariance model's refit to full covariance for
-                # any params_dim >= 2; the refit matches the main model.
-                full_covariance=self.model.full_covariance,
-                device=self.device)
-        else:
-            self._refit_model.reinit()
-        mog_model = self._refit_model
-        batch_size = 100
-        n_updates = 5 * tot_smpls // batch_size
-        inputs = np.zeros((mog_smpls.shape[0], 1), np.float32)
-        mog_model.run_training(inputs, mog_smpls.astype(np.float32),
-                               n_updates, batch_size)
-        fitted = mog_model.predict_MoGs(inputs[0:1, :])
-        assert len(fitted) == 1
+        with trace.span("bsim.refit", mixtures=len(mogs)):
+            tot_smpls = int(1e4)
+            n_per_mog = tot_smpls // len(mogs)
+            mog_smpls = np.concatenate(
+                [mog.gen(n_samples=n_per_mog) for mog in mogs], axis=0)
+            if self._refit_model is None:
+                self._refit_model = MDNN(
+                    input_dim=1, output_dim=self.model.output_dim,
+                    output_lows=self.model.output_lows,
+                    output_highs=self.model.output_highs,
+                    n_gaussians=self.model.n_gaussians,
+                    hidden_layers=(128, 128), lr=self.model.lr,
+                    activation=self.model.activation,
+                    # The reference passes `L_size > 0` here, which upgrades a
+                    # diagonal-covariance model's refit to full covariance for
+                    # any params_dim >= 2; the refit matches the main model.
+                    full_covariance=self.model.full_covariance,
+                    device=self.device)
+            else:
+                self._refit_model.reinit()
+            mog_model = self._refit_model
+            batch_size = 100
+            n_updates = 5 * tot_smpls // batch_size
+            inputs = np.zeros((mog_smpls.shape[0], 1), np.float32)
+            mog_model.run_training(inputs, mog_smpls.astype(np.float32),
+                                   n_updates, batch_size)
+            fitted = mog_model.predict_MoGs(inputs[0:1, :])
+            assert len(fitted) == 1
         return fitted[0]

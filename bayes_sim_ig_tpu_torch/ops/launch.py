@@ -10,7 +10,7 @@ raises on a CUDA error, so nothing falls back to the plain version.
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 import torch
 
@@ -48,21 +48,38 @@ def launch(library: str, fns: Dict[str, Callable], counts: Dict[str, int],
     counts[entry] += 1
 
 
+def _counters() -> Dict[str, Tuple[dict, str]]:
+    """Where each kernel's count lives, by kernel name: (a dict, its key).
+    The RFF count is a global of its module, so its dict is the module's
+    namespace."""
+    from . import rff_kernel, spd_kernel, tree_solve
+    return {"rff_features": (vars(rff_kernel), "LAUNCHES"),
+            **{f"spd_{e}_lanes": (spd_kernel.LAUNCHES, e)
+               for e in spd_kernel.LAUNCHES},
+            **{f"tree_ltdl_{e}": (tree_solve.LAUNCHES, e)
+               for e in tree_solve.LAUNCHES}}
+
+
 def launch_counts() -> Dict[str, int]:
     """Every hand-written kernel's launches by this process, by kernel
     name: ``rff_features``, ``spd_<entry>_lanes``, ``tree_ltdl_<entry>``."""
-    from . import rff_kernel, spd_kernel, tree_solve
-    return {"rff_features": rff_kernel.LAUNCHES,
-            **{f"spd_{e}_lanes": c for e, c in spd_kernel.LAUNCHES.items()},
-            **{f"tree_ltdl_{e}": c for e, c in tree_solve.LAUNCHES.items()}}
+    return {name: d[key] for name, (d, key) in _counters().items()}
 
 
 def set_launch_counts(counts: Dict[str, int]):
     """Sets the counts ``launch_counts`` reads (a CUDA graph puts back
-    what its capture counted, and adds it again at every replay)."""
-    from . import rff_kernel, spd_kernel, tree_solve
-    rff_kernel.LAUNCHES = counts["rff_features"]
-    for e in spd_kernel.LAUNCHES:
-        spd_kernel.LAUNCHES[e] = counts[f"spd_{e}_lanes"]
-    for e in tree_solve.LAUNCHES:
-        tree_solve.LAUNCHES[e] = counts[f"tree_ltdl_{e}"]
+    what its capture counted)."""
+    for name, (d, key) in _counters().items():
+        d[key] = counts[name]
+
+
+def launch_increments(before: Dict[str, int],
+                      after: Dict[str, int]) -> Tuple[Tuple[dict, str, int],
+                                                      ...]:
+    """The launches counted from ``before`` to ``after`` (two
+    ``launch_counts()``), the nonzero ones, as (dict, key, count): a CUDA
+    graph adds each ``count`` to ``dict[key]`` at every replay, in place,
+    building nothing and importing nothing."""
+    return tuple((d, key, after[name] - before[name])
+                 for name, (d, key) in _counters().items()
+                 if after[name] != before[name])

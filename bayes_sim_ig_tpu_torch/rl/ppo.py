@@ -23,6 +23,10 @@ row count (``_Act``). Each is a ``Graphed`` (``utils/step_graph.py``): a
 CUDA graph replay on the card, the body on the CPU. The weights, the Adam
 state and the lr are written in place, so the graphs keep reading the
 trainer's tensors.
+
+While tracing is on (``utils/trace.py``) ``run`` opens a ``ppo.iteration``
+span an iteration, with ``ppo.rollout``, ``ppo.update`` and ``ppo.wait``
+(the host blocked reading the metrics, the iteration's one sync) in it.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import torch
 
 from ..parallel.mesh import gather_envs, global_num_envs, is_main_process
 from ..sim.task import env_step
+from ..utils import trace
 from ..utils.convert import (actor_critic_params_from_jax,
                              actor_critic_params_to_jax)
 from ..utils.step_graph import (Graphed, StepGraph, clone_tree, distr_key,
@@ -510,10 +515,12 @@ class PPO:
         program), replicated on every rank. Returns the rollout's state and
         observation buffers, which its next call overwrites, and the
         metrics."""
-        graph = self._rollout(distr, env_state, obs)
-        metrics = self.update_from_traj(
-            gather_envs(graph.traj, dim=1),
-            gather_envs(graph.final["last_val"]))
+        with trace.span("ppo.rollout"):
+            graph = self._rollout(distr, env_state, obs)
+        with trace.span("ppo.update"):
+            metrics = self.update_from_traj(
+                gather_envs(graph.traj, dim=1),
+                gather_envs(graph.final["last_val"]))
         return graph.state, graph.obs, metrics
 
     # ------------------------------------------------------------------ #
@@ -528,11 +535,14 @@ class PPO:
         distr = self.vec_env._distr
         it = self.current_learning_iteration
         while it < num_learning_iterations:
-            t0 = time.perf_counter()
-            env_state, obs, metrics = self.train_iteration(distr, env_state,
-                                                           obs)
-            metrics = {k: float(v) for k, v in metrics.items()}  # syncs
-            dt = time.perf_counter() - t0
+            with trace.span("ppo.iteration", iteration=it):
+                t0 = time.perf_counter()
+                env_state, obs, metrics = self.train_iteration(
+                    distr, env_state, obs)
+                with trace.span("ppo.wait"):
+                    metrics = {k: float(v)
+                               for k, v in metrics.items()}  # syncs
+                dt = time.perf_counter() - t0
             metrics["env_steps_per_sec"] = (
                 self.nsteps * global_num_envs(self.task.num_envs) / dt)
             it += 1

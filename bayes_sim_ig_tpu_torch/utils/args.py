@@ -60,7 +60,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "must equal it)")
     p.add_argument("--profile", action="store_true",
                    help="wrap the first ADR iteration in a torch.profiler "
-                        "trace written to <logdir>/profile")
+                        "trace written to <logdir>/profile; the port's "
+                        "tracing is on meanwhile, so the trace also holds "
+                        "its spans (ranges named bsig.*: the ADR phases, "
+                        "PPO's rollout, update and wait, collection's "
+                        "rounds and frames, BayesSim, each graph replay)")
     p.add_argument("--resume", action="store_true",
                    help="resume the ADR loop from the latest checkpoint "
                         "in the run's logdir")

@@ -16,6 +16,12 @@ reset, the steps and the extraction, each a CUDA graph replay on the card.
 Trajectories are stored in float32. Returns (params, states, actions,
 rewards, imgs) with states (N, L, S), actions (N, L, A),
 L = max_episode_length.
+
+While tracing is on (``utils/trace.py``) a call opens ``collect.round``
+and ``collect.gather`` for each round and, when it renders, the copy of
+env 0's states to the host (``collect.to_host``, which waits for the
+rounds) and the frames (``collect.frames``). ``STATS`` counts the env
+steps every call steps and keeps, tracing on or off.
 """
 
 from __future__ import annotations
@@ -28,7 +34,13 @@ import torch
 
 from ..parallel.mesh import env_draw, gather_envs, global_num_envs
 from ..sim.task import env_step
+from . import trace
 from .step_graph import Graphed, StepGraph, distr_key, trajectory
+
+# The env steps of this process's ``collect_trajectories`` calls: every
+# env of every round steps (``stepped``: rounds x envs x steps), the
+# episodes returned keep theirs (``kept``: num_trajs x steps).
+STATS = {"stepped": 0, "kept": 0}
 
 
 # --------------------------------------------------------------------- #
@@ -251,18 +263,26 @@ def collect_trajectories(
     n_rounds = -(-num_trajs // num_envs)  # ceil
     rounds = []
     for r in range(n_rounds):
+        with trace.span("collect.round", round=r, num_trajs=num_trajs):
+            part = _collect_round(vec_env, ppo.policy_apply, collect_policy,
+                                  max_episode_length, ppo.net, distr, gen)
         # This rank's envs, all-gathered into the round of every env.
-        rounds.append(gather_envs(_collect_round(
-            vec_env, ppo.policy_apply, collect_policy, max_episode_length,
-            ppo.net, distr, gen)))
+        with trace.span("collect.gather"):
+            rounds.append(gather_envs(part))
         if verbose:
             done = min((r + 1) * num_envs, num_trajs)
             print(f"collected {done} trajs")
+    steps = max_episode_length - 1
+    STATS["stepped"] += n_rounds * num_envs * steps
+    STATS["kept"] += num_trajs * steps
     params, states, actions, rewards = (
         torch.cat(parts, dim=0)[:num_trajs] for parts in zip(*rounds))
     imgs: List = []
     if visualize:
-        imgs = _render_env0(task, states[0].cpu().numpy())
+        with trace.span("collect.to_host"):
+            obs_traj = states[0].cpu().numpy()
+        with trace.span("collect.frames"):
+            imgs = _render_env0(task, obs_traj)
     return params, states, actions, rewards, imgs
 
 

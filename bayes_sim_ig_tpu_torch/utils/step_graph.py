@@ -32,8 +32,11 @@ What a graph reads must stay where it was captured:
   * inputs are copied into the buffers (``load``), so a graph is keyed on
     their kinds and shapes (``distr_key``), not on their values.
 Each kernel wrapper counts its launches on the host. A capture's counts
-are put back and added again at every replay, so the counts stay those
-of the launches the card ran.
+are put back, and its nonzero increments are added again in place at
+every replay, so the counts stay those of the launches the card ran.
+While tracing is on (``utils/trace.py``) each call is a ``graph.replay``
+span with its phase; on the card the span also times the replay on the
+device.
 """
 
 from __future__ import annotations
@@ -44,7 +47,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from ..ops.launch import launch_counts, set_launch_counts
+from ..ops.launch import launch_counts, launch_increments, set_launch_counts
+from . import trace
 
 # Captures, replays and capture seconds of this process, by phase
 # ("reset", "collect", "extract", "rollout", "update", "fit", "step",
@@ -85,15 +89,19 @@ class Graphed:
 
     def __call__(self):
         if self.device.type != "cuda":
-            self.body()
+            with trace.span("graph.replay", phase=self.phase):
+                self.body()
             return
         if self._graph is None:
             self._capture()
             return
-        self._graph.replay()
-        counts = launch_counts()
-        set_launch_counts({k: c + self._launches[k]
-                           for k, c in counts.items()})
+        if trace.ENABLED:
+            with trace.device_span("graph.replay", phase=self.phase):
+                self._graph.replay()
+        else:
+            self._graph.replay()
+        for counts, key, n in self._launches:
+            counts[key] += n
         self.replays += 1
         self._stats["replays"] += 1
 
@@ -117,7 +125,7 @@ class Graphed:
             self.capture_s = time.perf_counter() - t0
             after = launch_counts()
         set_launch_counts(before)
-        self._launches = {k: after[k] - before[k] for k in after}
+        self._launches = launch_increments(before, after)
         self._graph = graph
         self._stats["captures"] += 1
         self._stats["capture_s"] += self.capture_s
