@@ -67,7 +67,7 @@ from ..physics.contact import (contact_pairs_impulse_apply,
                                sphere_sphere_pairs_forces)
 from ..physics.dynamics import _cross, _mv
 from ..physics.spatial import quat_mul, rot_to_quat
-from .render2d import draw_line
+from .render2d import draw_lines
 from ..utils.device import resolve_device
 from .task import Task
 
@@ -821,38 +821,48 @@ class ShadowHand(Task):
         """Top-down schematic from one 89-dim-layout observation row: palm
         patch, cube position and yaw (filled square), goal yaw (outline)
         and a side bar for the cube height."""
-        img = np.full((height, width, 3), 255, np.uint8)
+        return self.render_obs_frames(np.asarray(obs_row)[None], height,
+                                      width)[0]
+
+    def render_obs_frames(self, obs_traj, height=200, width=200):
+        """``render_obs_frame`` of each row of a (T, obs_dim) episode, as a
+        (T, H, W, 3) uint8 batch. Each stage is drawn on every frame
+        before the next, in the one-frame order, so later colours cover
+        earlier ones as they do there."""
+        obs = np.asarray(obs_traj, np.float64)
+        frames = np.arange(obs.shape[0])
         cx, cy = width // 2, height // 2
         scale = width / 0.5                      # 0.5 m field of view
 
-        def line(p0, p1, color, w=1):
-            draw_line(img, p0[0], p0[1], p1[0], p1[1], color, w)
-
-        def square(center, half_px, yaw, color, w=1):
+        def squares(imgs, ids, center, half_px, yaw, color, w=1):
             c, s = np.cos(yaw), np.sin(yaw)
-            pts = [(center[0] + half_px * (c * sx - s * sy),
-                    center[1] - half_px * (s * sx + c * sy))
-                   for sx, sy in ((-1, -1), (1, -1), (1, 1), (-1, 1))]
-            for k in range(4):
-                line(pts[k], pts[(k + 1) % 4], color, w)
+            corners = ((-1, -1), (1, -1), (1, 1), (-1, 1))
+            xs = [center[0] + half_px * (c * sx - s * sy)
+                  for sx, sy in corners]
+            ys = [center[1] - half_px * (s * sx + c * sy)
+                  for sx, sy in corners]
+            draw_lines(imgs, np.tile(ids, 4), np.concatenate(xs),
+                       np.concatenate(ys), np.concatenate(xs[1:] + xs[:1]),
+                       np.concatenate(ys[1:] + ys[:1]), color, w)
 
         def yaw_of(quat):
-            w_, x, y, z = quat
-            return float(np.arctan2(2 * (w_ * z + x * y),
-                                    1 - 2 * (y * y + z * z)))
+            w_, x, y, z = quat.T
+            return np.arctan2(2 * (w_ * z + x * y), 1 - 2 * (y * y + z * z))
 
-        # Palm patch (the 0.12 half-size contact plane).
-        square((cx, cy), 0.12 * scale, 0.0, (160, 160, 160), 1)
-        rel = np.asarray(obs_row[48:51], np.float64)
-        cube_q = np.asarray(obs_row[51:55], np.float64)
-        goal_q = np.asarray(obs_row[61:65], np.float64)
-        cube_px = (cx + rel[0] * scale, cy - rel[1] * scale)
-        square(cube_px, CUBE_HALF * scale, yaw_of(cube_q),
-               (204, 77, 77), 2)
-        square((cx, cy), CUBE_HALF * scale, yaw_of(goal_q),
-               (77, 77, 204), 1)
+        # Palm patch (the 0.12 half-size contact plane), alike in every
+        # frame: drawn once.
+        palm = np.full((1, height, width, 3), 255, np.uint8)
+        squares(palm, np.zeros(1, int), (cx, cy), 0.12 * scale, np.zeros(1),
+                (160, 160, 160), 1)
+        imgs = np.repeat(palm, len(frames), axis=0)
+        rel = obs[:, 48:51]
+        cube_px = (cx + rel[:, 0] * scale, cy - rel[:, 1] * scale)
+        squares(imgs, frames, cube_px, CUBE_HALF * scale,
+                yaw_of(obs[:, 51:55]), (204, 77, 77), 2)
+        squares(imgs, frames, (cx, cy), CUBE_HALF * scale,
+                yaw_of(obs[:, 61:65]), (77, 77, 204), 1)
         # Cube height bar on the left (rel z in [-0.25, 0.25]).
-        z_frac = float(np.clip((rel[2] + 0.25) / 0.5, 0.0, 1.0))
-        top = int((1.0 - z_frac) * (height - 1))
-        img[top:, 2:8] = (90, 170, 90)
-        return img
+        z_frac = np.clip((rel[:, 2] + 0.25) / 0.5, 0.0, 1.0)
+        top = ((1.0 - z_frac) * (height - 1)).astype(int)
+        imgs[:, :, 2:8][np.arange(height) >= top[:, None]] = (90, 170, 90)
+        return imgs

@@ -20,8 +20,10 @@ L = max_episode_length.
 While tracing is on (``utils/trace.py``) a call opens ``collect.round``
 and ``collect.gather`` for each round and, when it renders, the copy of
 env 0's states to the host (``collect.to_host``, which waits for the
-rounds) and the frames (``collect.frames``). ``STATS`` counts the env
-steps every call steps and keeps, tracing on or off.
+rounds) and the frames (``collect.frames``, with the episode's
+``frames`` and whether the task draws them ``batched``). ``STATS`` counts
+the env steps every call steps and keeps, and the frames it renders,
+tracing on or off.
 """
 
 from __future__ import annotations
@@ -39,8 +41,10 @@ from .step_graph import Graphed, StepGraph, distr_key, trajectory
 
 # The env steps of this process's ``collect_trajectories`` calls: every
 # env of every round steps (``stepped``: rounds x envs x steps), the
-# episodes returned keep theirs (``kept``: num_trajs x steps).
-STATS = {"stepped": 0, "kept": 0}
+# episodes returned keep theirs (``kept``: num_trajs x steps). The frames
+# ``_render_env0`` renders (``frames``), and of them those a task's
+# ``render_obs_frames`` draws as one batch (``frames_batched``).
+STATS = {"stepped": 0, "kept": 0, "frames": 0, "frames_batched": 0}
 
 
 # --------------------------------------------------------------------- #
@@ -246,7 +250,7 @@ def collect_trajectories(
     """Collects ``num_trajs`` episodes from ``ppo.vec_env`` (reference call
     shape). ``max_traj_len`` overrides episode length to max_traj_len + 1
     steps of bookkeeping. ``visualize`` renders env 0 of the first round
-    via the task's ``render_obs_frame``. Draws come from ``gen`` (default:
+    (``_render_env0``). Draws come from ``gen`` (default:
     the PPO trainer's generator). Under a global env mesh each rank steps
     its envs and every rank returns the episodes of all envs."""
     vec_env = ppo.vec_env
@@ -281,14 +285,24 @@ def collect_trajectories(
     if visualize:
         with trace.span("collect.to_host"):
             obs_traj = states[0].cpu().numpy()
-        with trace.span("collect.frames"):
+        with trace.span("collect.frames", frames=len(obs_traj),
+                        batched=hasattr(task, "render_obs_frames")):
             imgs = _render_env0(task, obs_traj)
     return params, states, actions, rewards, imgs
 
 
 def _render_env0(task, obs_traj: np.ndarray) -> List:
-    """Renders one episode's frames from its observation stream."""
-    render = getattr(task, "render_obs_frame", None)
-    if render is None:
-        return []
-    return [render(obs_traj[t]) for t in range(obs_traj.shape[0])]
+    """Renders one episode's frames from its observation stream: in one
+    batch where the task draws a whole episode (``render_obs_frames``),
+    else frame by frame (``render_obs_frame``)."""
+    render_all = getattr(task, "render_obs_frames", None)
+    if render_all is not None:
+        imgs = list(render_all(obs_traj))
+        STATS["frames_batched"] += len(imgs)
+    else:
+        render = getattr(task, "render_obs_frame", None)
+        if render is None:
+            return []
+        imgs = [render(obs_traj[t]) for t in range(obs_traj.shape[0])]
+    STATS["frames"] += len(imgs)
+    return imgs

@@ -12,8 +12,10 @@ slice, its check), or with ``--harness-trace 0`` as ``--trace 0`` runs
 it (no profiler, no harness spans), with the port's tracing on from the
 process's start when ``--port-trace 1``. Prints one JSON line (and
 appends it to ``--out``): the card and its power limit, ``correct``, the
-cell's metrics as the harness reads them, and, with tracing on, what
-the port's spans and counters give. These are readings outside the
+cell's metrics as the harness reads them, the frames collection rendered
+and of them those drawn as one batch (``utils/collect.py::STATS``), and,
+with tracing on, what the port's spans and counters give. These are
+readings outside the
 benchmark, whose harness reads none of them but ``kept_steps_share``:
 
   * ADR cells, per window ADR iteration: each ``adr.*`` phase's host
@@ -483,7 +485,11 @@ def main(argv=None) -> int:
             "units": run.units, "window_s": run.window_s,
             "iter_s": run.iter_s,
             "ppo_iter_ms_p50": 1e3 * xs[len(xs) // 2] if xs else None,
-            "breakdown": out["line"].get("breakdown")}
+            "breakdown": out["line"].get("breakdown"),
+            # The process's frames, set-up included; a checkout whose
+            # collection counts no frames reads 0.
+            "frames": {k: collect.STATS.get(k, 0) - before.get(k, 0)
+                       for k in ("frames", "frames_batched")}}
     if args.port_trace:
         torch.cuda.synchronize()
         line["readout"] = readout(

@@ -157,3 +157,44 @@ def test_unknown_observation_type_raises():
 
 def test_render_obs_frame(tasks):
     tc.render_matches_jax("ShadowHand", STEM, tasks["full"][0])
+
+
+def _episode_rows(tt, envs=40, steps=14, seed=0):
+    """(envs * (steps + 1), obs_dim) float32 observation rows of the port's
+    CPU env (each env's reset, then ``steps`` steps at random actions),
+    with the renderer's edge cases written over the first rows: the cube
+    a sub-pixel off the centre, far off the image, its height at and
+    beyond +-0.25, an all-zero quaternion, unnormalised quaternions."""
+    params = torch.from_numpy(tc.params_in_box(tt, envs, seed))
+    st = tt.init_state(torch.Generator().manual_seed(seed), params)
+    rows = [tt.observe(st, params)]
+    rs = np.random.RandomState(seed + 1)
+    for _ in range(steps):
+        act = rs.uniform(-1, 1, (envs, tt.act_dim)).astype(np.float32)
+        st = tt.physics_step(st, torch.from_numpy(act), params, None)
+        rows.append(tt.observe(st, params))
+    obs = torch.cat(rows).numpy()
+    edges = [(48, [1e-4, -2e-4, 0.0]), (48, [3.0, -2.0, 0.1]),
+             (48, [-0.31, 0.27, 0.0]), (48, [0.0, 0.0, 0.25]),
+             (48, [0.0, 0.0, -0.25]), (48, [0.01, 0.0, 0.7]),
+             (48, [0.0, 0.01, -0.7]), (51, [0.0, 0.0, 0.0, 0.0]),
+             (61, [0.0, 0.0, 0.0, 0.0]), (51, [3.1, -0.4, 2.2, 5.0]),
+             (61, [0.02, 0.1, -0.05, 0.03])]
+    for row, (col, vals) in enumerate(edges):
+        obs[row, col:col + len(vals)] = vals
+    return obs
+
+
+@pytest.mark.parametrize("layout", ["full", "full_state"])
+def test_render_obs_frames_equal_the_jax_frames_row_by_row(tasks, layout):
+    """A 600-row episode drawn as one batch is, frame for frame and bit for
+    bit, the JAX package's ``render_obs_frame`` of each row."""
+    jt, tt = tasks[layout]
+    obs = _episode_rows(tt)
+    assert obs.shape == (600, LAYOUTS[layout][1])
+    got = tt.render_obs_frames(obs)
+    assert got.shape == (600, 200, 200, 3) and got.dtype == np.uint8
+    want = np.stack([jt.render_obs_frame(row) for row in obs])
+    assert np.array_equal(got, want)
+    # Far off the image, the cube's outline is clipped into the corner.
+    assert got[1, 199, 199].tolist() == [204, 77, 77]

@@ -229,19 +229,23 @@ def test_adr_iteration_gives_the_span_tree(adr_run):
     assert [r["name"] for r in frames] == [
         "collect.round", "collect.gather", "collect.to_host",
         "collect.frames"]
+    # Pendulum draws its EP frames one by one.
+    assert frames[-1]["attrs"] == {"frames": EP, "batched": False}
 
 
 def test_collect_counters_equal_the_config_arithmetic(adr_run):
     """Per ADR iteration: the evaluation steps N envs for EP - 1 steps and
-    keeps REAL_EVALS episodes; each training chunk steps its rounds for
-    TRAIN_LEN steps and keeps its trajectories; the surrogate-real round
-    keeps REAL_TRAJS. Both iterations count, traced or not."""
+    keeps REAL_EVALS episodes and renders env 0's EP frames, one by one;
+    each training chunk steps its rounds for TRAIN_LEN steps and keeps its
+    trajectories; the surrogate-real round keeps REAL_TRAJS. Both
+    iterations count, traced or not."""
     _, counted, _, _, _ = adr_run
     rounds = -(-TRAIN_TRAJS // N)
     stepped = (N * (EP - 1) + rounds * N * TRAIN_LEN + N * TRAIN_LEN)
     kept = (REAL_EVALS * (EP - 1) + TRAIN_TRAJS * TRAIN_LEN
             + REAL_TRAJS * TRAIN_LEN)
-    assert counted == {"stepped": 2 * stepped, "kept": 2 * kept}
+    assert counted == {"stepped": 2 * stepped, "kept": 2 * kept,
+                       "frames": 2 * EP, "frames_batched": 0}
 
 
 def test_profiler_trace_holds_each_span_once_as_a_nested_range(adr_run):
