@@ -26,7 +26,7 @@ layout:
     than 0.66 of the lower triangle, as Ant's and Anymal's do, and with
     the branch-sparse L^T D L of ``ops/tree_solve.py`` over the ancestor
     pairs alone for sparser trees (Humanoid, ShadowHand). Each is a CUDA
-    kernel on the card.
+    kernel on the card. ``STATS`` counts the solves by route and kind.
 
 Everything is a function of (q, v, tau, params), so domain randomization is
 batched parameter tensors. Static tables of a model are built once per
@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from .model import ArticulatedModel, DynParams
+from ..ops.launch import count_at_replay
 from ..ops.spd_kernel import spd_factor_lanes, spd_substitute_lanes
 from ..ops.tree_solve import (
     ancestor_pairs, tree_factor, tree_substitute, tree_tables,
@@ -55,6 +56,16 @@ TREE_SOLVE_MAX_FILL = 0.66
 # proper-ancestor chain depth is at least this (Humanoid 8.0, ShadowHand
 # 3.3; fewer, larger ops on deep chains). The kernel has one form.
 TREE_LL_MIN_MEAN_DEPTH = 5.0
+
+# Mass-matrix solve calls of this process, by route ("dense": the SPD
+# kernels; "tree": the L^T D L ones) and kind: a factor, or a substitute
+# of one or more right-hand sides against a factor. Counted on the host as
+# the calls are made; a CUDA graph adds what its capture counted at every
+# replay (``count_at_replay``), so the counts stay those of the solves the
+# card ran.
+STATS = {"dense_factor": 0, "dense_substitute": 0, "tree_factor": 0,
+         "tree_substitute": 0}
+count_at_replay("physics", STATS)
 
 
 # --------------------------------------------------------------------- #
@@ -698,11 +709,14 @@ def forward_dynamics(model: ArticulatedModel, q, v, tau,
                             >= TREE_LL_MIN_MEAN_DEPTH)
             Mp = _tree_pair_values(st, F, kin.S_o, diag_extra)
             factor = ("tree", tree_factor(chains, Mp, left_looking))
+            STATS["tree_factor"] += 1
         else:
             Ml = _crba_matrix(st, F, kin.S_o)
             lhs = Ml + st["eye_nv"][:, :, None] * diag_extra[None, :, :]
             factor = ("dense", spd_factor_lanes(lhs))
+            STATS["dense_factor"] += 1
     kind, payload = factor
+    STATS[kind + "_substitute"] += 1
     if kind == "tree":
         qdd = tree_substitute(chains, payload, rhs).T
     else:
@@ -718,6 +732,7 @@ def mass_factor_solve(model: ArticulatedModel, factor, rhs):
     layout: rhs (K, nv, N) -> X (K, nv, N), in float32. Works for both
     factor kinds."""
     kind, payload = factor
+    STATS[kind + "_substitute"] += 1
     if kind == "tree":
         return tree_substitute(model.dof_anc_chains, payload, rhs.float())
     return spd_substitute_lanes(payload, rhs.float())

@@ -23,12 +23,19 @@ import torch
 
 from ..distributions.device import DeviceDistr, sample_distr
 from ..dr.noise import NoiseConfig, apply_noise
+from ..ops.launch import count_at_replay
 from ..parallel.mesh import env_draw
 from ..utils.step_graph import (Graphed, StepGraph, clone_tree, distr_key,
                                 tree_leaves, trajectory)
 
 CLIP_OBSERVATIONS = 100.0
 CLIP_ACTIONS = 1.0
+
+# ``env_step`` calls of this process: the denominator of the physics'
+# per-step counts (``physics/dynamics.py::STATS``). A CUDA graph adds what
+# its capture counted at every replay (``count_at_replay``).
+STATS = {"env_steps": 0}
+count_at_replay("sim", STATS)
 
 
 class Task:
@@ -161,6 +168,7 @@ def env_step(task: Task, distr: DeviceDistr, state: EnvState,
     if max_episode_length is None:
         max_episode_length = task.max_episode_length
     n, dev = task.num_envs, task.device
+    STATS["env_steps"] += 1
 
     actions = torch.clamp(actions, -CLIP_ACTIONS, CLIP_ACTIONS)
     if task.act_noise is not None:

@@ -31,9 +31,11 @@ What a graph reads must stay where it was captured:
     ``reinit`` writes fresh ones into the same tensors);
   * inputs are copied into the buffers (``load``), so a graph is keyed on
     their kinds and shapes (``distr_key``), not on their values.
-Each kernel wrapper counts its launches on the host. A capture's counts
-are put back, and its nonzero increments are added again in place at
-every replay, so the counts stay those of the launches the card ran.
+Each kernel wrapper counts its launches on the host, and the physics and
+the env step count their solves and steps beside them
+(``ops/launch.py::replay_counts``). A capture's counts are put back, and
+its nonzero increments are added again in place at every replay, so the
+counts stay those of the work the card ran.
 While tracing is on (``utils/trace.py``) each call is a ``graph.replay``
 span with its phase; on the card the span also times the replay on the
 device.
@@ -47,7 +49,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from ..ops.launch import launch_counts, launch_increments, set_launch_counts
+from ..ops.launch import launch_increments, replay_counts, set_launch_counts
 from . import trace
 
 # Captures, replays and capture seconds of this process, by phase
@@ -118,12 +120,12 @@ class Graphed:
             graph = torch.cuda.CUDAGraph()
             for gen in self._generators:
                 graph.register_generator_state(gen)
-            before = launch_counts()
+            before = replay_counts()
             t0 = time.perf_counter()
             with torch.cuda.graph(graph, stream=side):
                 self.body()
             self.capture_s = time.perf_counter() - t0
-            after = launch_counts()
+            after = replay_counts()
         set_launch_counts(before)
         self._launches = launch_increments(before, after)
         self._graph = graph
