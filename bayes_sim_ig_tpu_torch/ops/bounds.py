@@ -28,6 +28,12 @@ Counting rules, per env unless stated:
   * RFF (B, d, m): reads x (B d) and coeff (d m), writes (B, 2m); 2 B d m
     FLOPs of the product plus 4 B m (a cos, a sin and two scalings,
     counted as one FLOP each, the floor of their cost).
+  * Integrate and clamp (nq, nv, N): reads q (nq floats), v and qdd (nv
+    each), writes q and v; a free body 273 FLOPs (two rotations from
+    quaternions, a cross product, six 3 x 3 products, two norm clamps,
+    the quaternion product, update and normalization; a square root, a
+    reciprocal or a divide one each), a 1-dof joint 4 (two multiply-adds;
+    the clamps are not counted).
 """
 
 from __future__ import annotations
@@ -104,3 +110,8 @@ def tree_half_solve(chains: Sequence[Sequence[int]], N: int,
 
 def rff_features(B: int, d: int, m: int) -> Bound:
     return Bound(_F32 * (B * d + d * m + 2 * B * m), 2 * B * d * m + 4 * B * m)
+
+
+def integrate_clamp(nq: int, nv: int, N: int, n_free: int,
+                    n_j1: int) -> Bound:
+    return Bound(_F32 * N * (2 * nq + 3 * nv), N * (273 * n_free + 4 * n_j1))

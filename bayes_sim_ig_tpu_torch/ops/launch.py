@@ -1,4 +1,4 @@
-"""What the wrappers of the SPD and tree kernels share: the device pick,
+"""What the wrappers of the hand-written kernels share: the device pick,
 the check of a launch's tensors, and the launch itself with its count;
 and the counts of every kernel, and of the work that the programs
 register to count beside them (``count_at_replay``), read and set by
@@ -67,12 +67,14 @@ def _counters(registered: bool = True) -> Dict[str, Tuple[dict, str]]:
     launches by kernel name (the RFF count is a global of its module, so
     its dict is the module's namespace), then, with ``registered``, the
     keys of the dicts registered with ``count_at_replay``."""
-    from . import rff_kernel, spd_kernel, tree_solve
+    from . import integrate_kernel, rff_kernel, spd_kernel, tree_solve
     counters = {"rff_features": (vars(rff_kernel), "LAUNCHES"),
                 **{f"spd_{e}_lanes": (spd_kernel.LAUNCHES, e)
                    for e in spd_kernel.LAUNCHES},
                 **{f"tree_ltdl_{e}": (tree_solve.LAUNCHES, e)
-                   for e in tree_solve.LAUNCHES}}
+                   for e in tree_solve.LAUNCHES},
+                "integrate_clamp": (integrate_kernel.LAUNCHES,
+                                    "integrate_clamp")}
     if registered:
         counters.update({f"{prefix}.{k}": (d, k)
                          for prefix, d in _AT_REPLAY.items() for k in d})
@@ -81,7 +83,8 @@ def _counters(registered: bool = True) -> Dict[str, Tuple[dict, str]]:
 
 def launch_counts() -> Dict[str, int]:
     """Every hand-written kernel's launches by this process, by kernel
-    name: ``rff_features``, ``spd_<entry>_lanes``, ``tree_ltdl_<entry>``."""
+    name: ``rff_features``, ``spd_<entry>_lanes``, ``tree_ltdl_<entry>``,
+    ``integrate_clamp``."""
     return {name: d[key] for name, (d, key) in _counters(False).items()}
 
 

@@ -10,8 +10,8 @@ state with env-last internals (dynamics.py).
 from .model import ArticulatedModel, LinkSpec, Geom, DynParams, JOINT_DOF
 from .dynamics import (
     forward_kinematics, forward_dynamics, integrate, mass_matrix,
-    bias_forces, clamp_limits, dof_positions, carried_mass_factor,
-    mass_factor_solve, external_generalized_force,
+    bias_forces, clamp_limits, integrate_and_clamp, dof_positions,
+    carried_mass_factor, mass_factor_solve, external_generalized_force,
 )
 from .contact import (
     ground_contact_forces, contact_points, sphere_plane_pair_forces,
@@ -24,7 +24,7 @@ from .contact import (
 __all__ = [
     "ArticulatedModel", "LinkSpec", "Geom", "DynParams", "JOINT_DOF",
     "forward_kinematics", "forward_dynamics", "integrate", "mass_matrix",
-    "bias_forces", "clamp_limits", "dof_positions",
+    "bias_forces", "clamp_limits", "integrate_and_clamp", "dof_positions",
     "carried_mass_factor", "mass_factor_solve",
     "external_generalized_force",
     "ground_contact_forces", "contact_points",

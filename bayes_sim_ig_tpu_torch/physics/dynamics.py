@@ -42,7 +42,8 @@ import numpy as np
 import torch
 
 from .model import ArticulatedModel, DynParams
-from ..ops.launch import count_at_replay
+from ..ops.integrate_kernel import integrate_clamp_cuda
+from ..ops.launch import count_at_replay, on_cpu
 from ..ops.spd_kernel import spd_factor_lanes, spd_substitute_lanes
 from ..ops.tree_solve import (
     ancestor_pairs, tree_factor, tree_substitute, tree_tables,
@@ -253,6 +254,13 @@ def _structure(model: ArticulatedModel, device) -> dict:
     pairs = np.asarray(ancestor_pairs(model.dof_anc_chains), np.int64)
     s.update(tree_k=idx(pairs[:, 0]), tree_i=idx(pairs[:, 1]),
              tree_diag=idx(tree_tables(model.dof_anc_chains).diag))
+    # The integration kernel's tables: the (q, v) offsets of the free
+    # joints, then of the 1-dof joints, and each 1-dof joint's limits.
+    offsets = [(qi, vi) for (_, qi, vi) in free] \
+        + list(zip(model.j1_q.tolist(), model.j1_v.tolist()))
+    s.update(integ_table=torch.as_tensor(
+        np.asarray(offsets, np.int32).reshape(-1, 2), device=device),
+        integ_limits=torch.stack([s["j1_maxv"], s["j1_lo"], s["j1_hi"]], 1))
     cache[device] = s
     return s
 
@@ -795,6 +803,22 @@ def integrate(model: ArticulatedModel, q, v, qdd, dt):
         v_new[vi:vi + 3] = _mvT(R_n, ww)
         v_new[vi + 3:vi + 6] = _mvT(R_n, vw)
     return q_new.T, v_new.T
+
+
+def integrate_and_clamp(model: ArticulatedModel, q, v, qdd, dt: float):
+    """One substep's ``integrate`` followed by ``clamp_limits``. On the card
+    it is one launch of ``csrc/integrate.cu``, equal to the two functions
+    on a batch there bit for bit (a single env gives its row of a batch);
+    CPU tensors run the two functions, its plain version."""
+    if on_cpu(q, v, qdd):
+        return clamp_limits(model, *integrate(model, q, v, qdd, dt))
+    if q.ndim == 1:
+        qn, vn = integrate_and_clamp(model, q[None], v[None], qdd[None], dt)
+        return qn[0], vn[0]
+    st = _structure(model, q.device)
+    return integrate_clamp_cuda(q, v, qdd, dt, st["integ_table"],
+                                st["integ_limits"], len(model.free_list),
+                                MAX_LIN_VEL, MAX_ANG_VEL)
 
 
 def clamp_limits(model: ArticulatedModel, q, v):

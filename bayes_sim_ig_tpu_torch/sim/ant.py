@@ -32,9 +32,8 @@ from ..dr import TaskNames, build_params_spec
 from ..parallel.mesh import env_draw
 from ..physics import (
     ArticulatedModel, LinkSpec, Geom, DynParams,
-    forward_kinematics, forward_dynamics, integrate,
-    carried_mass_factor, clamp_limits,
-    ground_contact_forces,
+    forward_kinematics, forward_dynamics, integrate_and_clamp,
+    carried_mass_factor, ground_contact_forces,
 )
 from ..physics.spatial import quat_to_rot
 from .render2d import draw_line
@@ -230,8 +229,7 @@ class Ant(Task):
                 m, q, v, tau_act, dp, f_ext, dt=h, kin=kin,
                 factor=carried_mass_factor(factor, default=True),
                 return_factor=True)
-            q, v = integrate(m, q, v, qdd, h)
-            q, v = clamp_limits(m, q, v)
+            q, v = integrate_and_clamp(m, q, v, qdd, h)
         return AntState(q=q, v=v)
 
     def observe(self, state, params):

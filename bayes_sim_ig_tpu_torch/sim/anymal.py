@@ -32,9 +32,8 @@ from ..dr import TaskNames, build_params_spec
 from ..parallel.mesh import env_draw
 from ..physics import (
     ArticulatedModel, LinkSpec, Geom, DynParams,
-    forward_kinematics, forward_dynamics, integrate,
-    carried_mass_factor, clamp_limits,
-    ground_contact_forces,
+    forward_kinematics, forward_dynamics, integrate_and_clamp,
+    carried_mass_factor, ground_contact_forces,
 )
 from ..physics.spatial import quat_to_rot
 from .render2d import draw_line
@@ -211,8 +210,7 @@ class Anymal(Task):
                 factor=carried_mass_factor(factor), return_factor=True,
                 drive_kp=kp_dof, drive_kd=kd_dof, drive_target=tgt_dof,
                 drive_effort=80.0)
-            q, v = integrate(m, q, v, qdd, h)
-            q, v = clamp_limits(m, q, v)
+            q, v = integrate_and_clamp(m, q, v, qdd, h)
         return AnymalState(q=q, v=v, commands=state.commands,
                            prev_actions=a)
 

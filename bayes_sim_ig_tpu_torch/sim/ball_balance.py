@@ -35,9 +35,8 @@ from ..dr import TaskNames, build_params_spec
 from ..parallel.mesh import env_draw
 from ..physics import (
     ArticulatedModel, LinkSpec, Geom, DynParams,
-    forward_kinematics, forward_dynamics, integrate,
-    carried_mass_factor, clamp_limits,
-    ground_contact_forces, sphere_plane_pair_forces,
+    forward_kinematics, forward_dynamics, integrate_and_clamp,
+    carried_mass_factor, ground_contact_forces, sphere_plane_pair_forces,
 )
 from ..physics.spatial import quat_to_rot
 from ..utils.device import resolve_device
@@ -210,8 +209,7 @@ class BallBalance(Task):
             qdd, _, factor = forward_dynamics(
                 m, q, v, tau, dp, f_ext, dt=h, kin=kin,
                 factor=carried_mass_factor(factor), return_factor=True)
-            q, v = integrate(m, q, v, qdd, h)
-            q, v = clamp_limits(m, q, v)
+            q, v = integrate_and_clamp(m, q, v, qdd, h)
         return BBotState(q=q, v=v)
 
     def _ball_rel(self, state, tray_R=None):

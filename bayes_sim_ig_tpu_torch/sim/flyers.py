@@ -31,8 +31,8 @@ import torch
 from ..dr import TaskNames, build_params_spec
 from ..parallel.mesh import env_draw
 from ..physics import (
-    ArticulatedModel, LinkSpec, DynParams, forward_dynamics, integrate,
-    clamp_limits, carried_mass_factor,
+    ArticulatedModel, LinkSpec, DynParams, forward_dynamics,
+    integrate_and_clamp, carried_mass_factor,
 )
 from ..physics.spatial import quat_to_rot
 from .render2d import draw_line
@@ -166,8 +166,7 @@ class _FlyerBase(Task):
                 m, q, v, zero_tau, dp, f_ext, dt=h,
                 factor=carried_mass_factor(factor), return_factor=True,
                 **drive)
-            q, v = integrate(m, q, v, qdd, h)
-            q, v = clamp_limits(m, q, v)
+            q, v = integrate_and_clamp(m, q, v, qdd, h)
         return FlyerState(q=q, v=v)
 
     def _kinematics_obs(self, state):

@@ -34,8 +34,8 @@ from ..dr import TaskNames, build_params_spec
 from ..parallel.mesh import env_draw
 from ..physics import (
     ArticulatedModel, LinkSpec, DynParams,
-    forward_kinematics, forward_dynamics, integrate,
-    carried_mass_factor, clamp_limits, sphere_plane_pair_forces,
+    forward_kinematics, forward_dynamics, integrate_and_clamp,
+    carried_mass_factor, sphere_plane_pair_forces,
 )
 from ..utils.device import resolve_device
 from .task import Task
@@ -261,8 +261,7 @@ class FrankaCabinet(Task):
                 factor=carried_mass_factor(factor), return_factor=True,
                 drive_kp=kp_dof, drive_kd=kd_dof, drive_target=tgt_dof,
                 drive_effort=87.0)
-            q, v = integrate(m, q, v, qdd, h)
-            q, v = clamp_limits(m, q, v)
+            q, v = integrate_and_clamp(m, q, v, qdd, h)
         return FrankaState(q=q, v=v, targets=targets)
 
     def _hand_to_handle(self, state, params):

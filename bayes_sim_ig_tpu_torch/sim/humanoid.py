@@ -38,9 +38,8 @@ from ..dr import TaskNames, build_params_spec
 from ..parallel.mesh import env_draw
 from ..physics import (
     ArticulatedModel, LinkSpec, Geom, DynParams,
-    forward_dynamics, forward_kinematics, integrate, clamp_limits,
-    carried_mass_factor,
-    ground_contact_forces,
+    forward_dynamics, forward_kinematics, integrate_and_clamp,
+    carried_mass_factor, ground_contact_forces,
 )
 from ..physics.spatial import quat_to_rot
 from .render2d import draw_line
@@ -290,8 +289,7 @@ class Humanoid(Task):
             qdd, _, factor = forward_dynamics(
                 m, q, v, tau, dp, f_ext, dt=h, kin=kin,
                 factor=carried_mass_factor(factor), return_factor=True)
-            q, v = integrate(m, q, v, qdd, h)
-            q, v = clamp_limits(m, q, v)
+            q, v = integrate_and_clamp(m, q, v, qdd, h)
         return HumanoidState(q=q, v=v)
 
     def observe(self, state, params):

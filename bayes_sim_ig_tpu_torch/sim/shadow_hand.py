@@ -55,8 +55,8 @@ from ..dr import TaskNames, build_params_spec
 from ..parallel.mesh import env_draw
 from ..physics import (
     ArticulatedModel, LinkSpec, Geom, DynParams,
-    forward_kinematics, forward_dynamics, integrate,
-    carried_mass_factor, clamp_limits, external_generalized_force,
+    forward_kinematics, forward_dynamics, integrate_and_clamp,
+    carried_mass_factor, external_generalized_force,
 )
 from ..physics.contact import (contact_pairs_impulse_apply,
                                contact_pairs_impulse_prepare,
@@ -687,8 +687,7 @@ class ShadowHand(Task):
                 iters=SWEEPS[min(sub, len(SWEEPS) - 1)], warm=warm,
                 return_warm=True)
             qdd = qdd + (v_res - v_pred) / h
-            q, v = integrate(m, q, v, qdd, h)
-            q, v = clamp_limits(m, q, v)
+            q, v = integrate_and_clamp(m, q, v, qdd, h)
         z = actions.new_zeros
         tip_force, tip_torque = z(n_env, 18), z(n_env, 15)
         tip_state, dof_force = z(n_env, 65), z(n_env, 24)

@@ -61,6 +61,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
        their times against the plain versions, the bound and the
        one-call yardstick solve_triangular(unitriangular) on L made
        dense;
+     - the integration kernel (csrc/integrate.cu: a substep's integrate
+       and clamp_limits in one launch) on every articulated task's model at
+       its ADR width and on ShadowHand's at 10000, at states that drive
+       every clamp, against the torch chain it replaces on the card, bit
+       for bit; at the benchmark cells' widths (Anymal 4000, Humanoid 4096,
+       ShadowHand 10000) the times of both alone and in a CUDA graph of 20
+       calls, the chain's launches a call and the bound;
   4. the step graphs (utils/step_graph.py): each of the ten tasks at the
      full width of its ADR phase (below; Cartpole 512, Pendulum 100
      envs) runs 20 collection steps (its config's collection policy, the
@@ -97,8 +104,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      trainTrajLen 50, summary_corrdiff, MDNN [128, 128] x 10 components,
      PPO [256, 128, 64] with nsteps 16) for 2 ADR iterations through
      ``bayes_sim_main.main`` (ADR_PHASES); checks that the SPD factor and
-     substitute kernels were launched and no other kernel, the posteriors
-     are finite with 17 dims and every model and env tensor is on the
+     substitute kernels and the integration kernel were launched and no
+     other kernel, the posteriors are finite with 17 dims and every model and env tensor is on the
      card; prints the seconds of each iteration and of its phases;
   5. the ADR loop on Cartpole + MDRFF at full width (512 envs,
      summary_corrdiff features d = 302, 200 RFF features, 10 components
@@ -112,8 +119,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   6. the ADR loop on Humanoid at full width (4096 envs, 37 params,
      trainTrajLen 50, summary_corrdiff, MDNN [128, 128] x 10 components,
      PPO [400, 200, 100] elu with nsteps 32) for 2 ADR iterations
-     (ADR_PHASES); checks that both tree kernels were launched and no
-     other kernel, and the same as phase 4;
+     (ADR_PHASES); checks that both tree kernels and the integration
+     kernel were launched and no other kernel, and the same as phase 4;
   7. the README quick start, Pendulum + MDNN with summary_start at full
      width (100 envs), for 2 ADR iterations; it launches no kernel;
   8. the ADR loop on each of Anymal (4000 envs, 13 params), Quadcopter
@@ -121,13 +128,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      FrankaCabinet (2048, 19) at full width (ADR_PHASES; 1 ADR iteration
      each): checks the SPD
      factor and substitute kernels and no tree kernel on the four dense
-     tasks, the tree kernels and no SPD kernel on BallBalance, and the
-     same as phase 4;
+     tasks, the tree kernels and no SPD kernel on BallBalance, the
+     integration kernel on all five, and the same as phase 4;
   9. the ADR loop on ShadowHand at full width (1024 envs, 32 params,
      89-dim obs, trainTrajLen 30, MDNN [128, 128] x 10, PPO [512, 256,
      128] with nsteps 8) for 2 ADR iterations (ADR_PHASES): checks the
-     tree factor, substitute, upsolve and downsolve kernels and no SPD
-     kernel, and the same as phase 4; then the same for 1 ADR iteration
+     tree factor, substitute, upsolve and downsolve kernels, the
+     integration kernel and no SPD kernel, and the same as phase 4; then the same for 1 ADR iteration
      at the JAX package's own scale
      (HAND_SCALE_PHASES, trainTrajs cut to 1000, the evaluation's 600-step
      episodes uncut): 9a. shadow_hand_more.yaml at 10000 envs (111
@@ -147,8 +154,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      None) builds no BayesSim, fits nothing, writes no posterior, captures
      no rollout or update program after its first PPO run and
      returns 3 finite surrogate-real means; the grasp arm replays its
-     fits and writes finite posteriors; both launch the tree kernels and
-     half-solves only and free every graph; allocated memory (without
+     fits and writes finite posteriors; both launch the tree kernels,
+     half-solves and integration kernel only and free every graph; allocated memory (without
      cuBLAS's per-stream workspaces) comes back within 64 MiB;
      experiments/adr_pooled_analysis.py reads the pair;
      then 20 steps of shadow_hand_grasp_full.yaml (2048 envs, the 211-dim
@@ -324,12 +331,13 @@ def phase_device():
 
 def phase_build():
     from bayes_sim_ig_tpu_torch.ops import (
-        build, rff_kernel, spd_kernel, tree_solve,
+        build, integrate_kernel, rff_kernel, spd_kernel, tree_solve,
     )
     loaders = {"rff_features": rff_kernel._kernel_fn,
                "spd_lanes": spd_kernel._kernel_fns,
                "tree_ltdl": tree_solve._kernel_fns,
-               "tree_half": tree_solve._half_lib}
+               "tree_half": tree_solve._half_lib,
+               "integrate": integrate_kernel._kernel_fns}
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
         futures = {name: pool.submit(fn) for name, fn in loaders.items()}
@@ -532,6 +540,102 @@ def _spd_inputs(n, N, k=None, seed=0):
     return At, torch.as_tensor(rs.randn(*shape), dtype=torch.float32,
                                device=dev)
 
+
+
+# The integration kernel (csrc/integrate.cu) at each articulated task's ADR
+# width and at the benchmark cells' (ShadowHand 10,000); the timed ones are
+# the cells' tasks. (task, config stem, numEnvs).
+INTEG_SHAPES = [("Ant", "ant", 1024), ("Humanoid", "humanoid", 4096),
+                ("Anymal", "anymal", 4000),
+                ("Quadcopter", "quadcopter", 8192),
+                ("Ingenuity", "ingenuity", 4096),
+                ("BallBalance", "ball_balance", 128),
+                ("FrankaCabinet", "franka_cabinet", 2048),
+                ("ShadowHand", "shadow_hand", 1024),
+                ("ShadowHand", "shadow_hand_more", 10000)]
+INTEG_TIMED = [("Anymal", "anymal", 4000), ("Humanoid", "humanoid", 4096),
+               ("ShadowHand", "shadow_hand_more", 10000)]
+INTEG_MAIN = ("Anymal", "anymal", 4000)
+INTEG_DT = 1 / 120
+
+
+def _graph_ms(fn, calls=20, n=50):
+    """Per call ms of ``fn`` inside a CUDA graph of ``calls`` calls: the
+    median of ``n`` replays (CUDA events) over ``calls``, what the call
+    costs in a step graph, launch gaps included."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = _median_ms(graph.replay, n=n) / calls
+    del graph
+    return ms
+
+
+def phase_integrate_kernel():
+    """The integration kernel against the torch chain it replaces
+    (dynamics.integrate then clamp_limits, on the card) at INTEG_SHAPES,
+    bit for bit; at INTEG_TIMED the times of both alone and inside a CUDA
+    graph of 20 calls, and the bound."""
+    from bayes_sim_ig_tpu_torch.ops import bounds
+    from bayes_sim_ig_tpu_torch.ops import integrate_kernel as ik
+    from bayes_sim_ig_tpu_torch.physics import dynamics
+    from bayes_sim_ig_tpu_torch.sim import make_env
+    from bayes_sim_ig_tpu_torch.utils.args import load_config
+    from tests.integrate_states import clamp_driving_states
+    worst, timed = 0.0, {}
+    for task, stem, N in INTEG_SHAPES:
+        cfg = load_config(os.path.join(HERE, "bayes_sim_ig_tpu_torch", "cfg",
+                                       f"{stem}.yaml"))
+        cfg["env"]["numEnvs"] = 1
+        model = make_env(task, cfg, seed=0, device="cpu").task.model
+        q, v, qdd = clamp_driving_states(model, N, device="cuda")
+        st = dynamics._structure(model, "cuda")
+        n_free = len(model.free_list)
+
+        def kernel():
+            return ik.integrate_clamp_cuda(q, v, qdd, INTEG_DT,
+                                           st["integ_table"],
+                                           st["integ_limits"], n_free,
+                                           dynamics.MAX_LIN_VEL,
+                                           dynamics.MAX_ANG_VEL)
+
+        def plain():
+            return dynamics.clamp_limits(model, *dynamics.integrate(
+                model, q, v, qdd, INTEG_DT))
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        ok = all(torch.equal(g, w) for g, w in zip(got, want))
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        worst = max(worst, err)
+        shape = (f"({task} {stem}: nq {model.nq}, nv {model.nv}, "
+                 f"{n_free} free, {model.j1_q.size} 1-dof, N {N})")
+        print(f"[kernel] integrate_clamp {shape}: max_abs_err {err:.3e} "
+              f"{'ok, bit for bit' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            raise AssertionError(f"integrate_clamp disagrees with the torch "
+                                 f"chain at {shape}")
+        if (task, stem, N) in INTEG_TIMED:
+            t = _times(kernel, plain)
+            t["graph_ms"], t["plain_graph_ms"] = (_graph_ms(kernel),
+                                                  _graph_ms(plain))
+            t["plain_launches"] = _device_profile(plain, n=5)[1]
+            t["bound"] = bounds.integrate_clamp(model.nq, model.nv, N, n_free,
+                                                model.j1_q.size)
+            timed[(task, stem, N)] = t
+            print(f"[kernel] integrate_clamp {shape}: {_time_line(t)} | in "
+                  f"a graph of 20 calls: kernel {t['graph_ms']:.4f} ms, "
+                  f"plain {t['plain_graph_ms']:.4f} ms a call "
+                  f"({t['plain_launches']} launches) | "
+                  f"{_bound_line(t['bound'])}", flush=True)
+    return {"max_abs_err": worst, **timed[INTEG_MAIN],
+            "times": {f"{task} N={N}": dict(
+                _time_entry(t), graph_ms=t["graph_ms"],
+                plain_graph_ms=t["plain_graph_ms"],
+                plain_launches=t["plain_launches"])
+                for (task, _, N), t in timed.items()}}
 
 def _check(name, got, want, shape):
     torch.cuda.synchronize()
@@ -2157,23 +2261,26 @@ def phase_train_graphs(smi):
 _SPD = ("spd_factor_lanes", "spd_substitute_lanes")
 _TREE = ("tree_ltdl_factor", "tree_ltdl_substitute")
 _HALF = ("tree_ltdl_upsolve", "tree_ltdl_downsolve")
+_INTEG = ("integrate_clamp",)
 ADR_PHASES = [
     ("Ant", "ant", 1024, 17, [256, 128, 64], 16, 50,
-     "summary_corrdiff", _SPD, 1000, {}, 2),
+     "summary_corrdiff", _SPD + _INTEG, 1000, {}, 2),
     ("Humanoid", "humanoid", 4096, 37, [400, 200, 100], 32, 50,
-     "summary_corrdiff", _TREE, 1000, {}, 2),
+     "summary_corrdiff", _TREE + _INTEG, 1000, {}, 2),
     ("Anymal", "anymal", 4000, 13, [256, 128, 64], 24, 50,
-     "summary_corrdiff", _SPD, 2000, {"episodeLength_s": 1000 / 60}, 1),
+     "summary_corrdiff", _SPD + _INTEG, 2000,
+     {"episodeLength_s": 1000 / 60}, 1),
     ("Quadcopter", "quadcopter", 8192, 9, [256, 128, 64], 16, 10,
-     "summary_start", _SPD, 2000, {}, 1),
+     "summary_start", _SPD + _INTEG, 2000, {}, 1),
     ("Ingenuity", "ingenuity", 4096, 9, [256, 128, 64], 16, 10,
-     "summary_start", _SPD, 2000, {"maxEpisodeLength": 1000}, 1),
+     "summary_start", _SPD + _INTEG, 2000,
+     {"maxEpisodeLength": 1000}, 1),
     ("BallBalance", "ball_balance", 128, 7, [128, 64, 32], 16, 20,
-     "summary_corrdiff", _TREE, 512, {}, 1),
+     "summary_corrdiff", _TREE + _INTEG, 512, {}, 1),
     ("FrankaCabinet", "franka_cabinet", 2048, 19, [256, 128, 64], 16, 30,
-     "summary_corrdiff", _SPD, 2000, {}, 1),
+     "summary_corrdiff", _SPD + _INTEG, 2000, {}, 1),
     ("ShadowHand", "shadow_hand", 1024, 32, [512, 256, 128], 8, 30,
-     "summary_corrdiff", _TREE + _HALF, 1000, {}, 2),
+     "summary_corrdiff", _TREE + _HALF + _INTEG, 1000, {}, 2),
 ]
 
 # Phases 9a and 9b: ShadowHand at the JAX package's own scale, as
@@ -2186,10 +2293,11 @@ ADR_PHASES = [
 # evaluation's 600-step episodes uncut.
 HAND_SCALE_PHASES = [
     (("ShadowHand", "shadow_hand_more", 10000, 111, [512, 256, 128], 8, 50,
-      "summary_corrdiff", _TREE + _HALF, 1000, {}, 1), 89,
+      "summary_corrdiff", _TREE + _HALF + _INTEG, 1000, {}, 1), 89,
      "policy_rl_randomized"),
     (("ShadowHand", "shadow_hand_grasp", 2048, 32, [512, 256, 128], 8, 30,
-      "summary_corrdiff", _TREE + _HALF, 1000, {}, 1), 107, "policy_grasp"),
+      "summary_corrdiff", _TREE + _HALF + _INTEG, 1000, {}, 1), 107,
+     "policy_grasp"),
 ]
 
 # The tasks of the step-graph phase: (task, config stem, numEnvs, env
@@ -2326,7 +2434,7 @@ def phase_adr_pair(seed=7, iters=3):
                 raise AssertionError(f"{arm}: graphs kept: "
                                      f"{rec['live_graphs']}")
             for entry, count in rec["launches"].items():
-                if (count > 0) != (entry in _TREE + _HALF):
+                if (count > 0) != (entry in _TREE + _HALF + _INTEG):
                     raise AssertionError(f"{arm}: {entry} launched {count} "
                                          f"times")
             posteriors = glob.glob(os.path.join(out["logdir"], "**",
@@ -2653,6 +2761,7 @@ def main():
     spd = phase_spd_kernel()
     tree = phase_tree_kernel()
     half = phase_half_solves()
+    integ = phase_integrate_kernel()
     phase_step_graphs()
     phase_train_graphs(smi)
     ant, humanoid, *rest = ADR_PHASES
@@ -2707,6 +2816,11 @@ def main():
             replaces, by_task(f"tree_ltdl_{entry}"), t,
             library_call="torch.linalg.solve_triangular(unitriangular)",
             times=t["times"]))
+    kernels.append(_kernel_entry(
+        "integrate_clamp", "bayes_sim_ig_tpu_torch/csrc/integrate.cu",
+        "none: physics/dynamics.py::integrate + clamp_limits (plain torch)",
+        by_task("integrate_clamp"), integ, graph_ms=integ["graph_ms"],
+        plain_graph_ms=integ["plain_graph_ms"], times=integ["times"]))
     print(f"[total] chip_smoke.py ran in {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}))

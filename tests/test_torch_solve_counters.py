@@ -8,7 +8,11 @@
   (b) ``launch_counts`` stays the kernels' launches, and ``replay_counts``
       adds the counts registered with ``count_at_replay``;
   (c) on a card (``cuda`` marker), a step graph's replays add what its
-      capture counted, as they add the kernels' launches.
+      capture counted, as they add the kernels' launches;
+  (d) on a card, an env step integrates in two launches of the
+      integration kernel, one a substep, eager and replayed alike: in
+      (c) for Anymal, here for the other cells' tasks, Humanoid and
+      ShadowHand.
 
 This file imports no JAX, so that its card case runs where JAX is
 absent."""
@@ -118,8 +122,8 @@ def test_a_carried_factor_counts_only_its_substitute():
 def test_step_graph_replays_add_the_counts():
     """``VecEnv.step`` at 64 Anymal envs on the card: the first call runs
     the step eagerly and captures it, each later call replays it; over
-    five calls the solves, the env steps and the SPD kernels' launches all
-    count five steps."""
+    five calls the solves, the env steps, the SPD kernels' and the
+    integration kernel's launches all count five steps."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: a CUDA graph has no CPU mode")
     env, _ = _env("Anymal", "anymal", device="cuda", n=64)
@@ -132,5 +136,28 @@ def test_step_graph_replays_add_the_counts():
     got = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     assert got == {"physics.dense_factor": 10,
                    "physics.dense_substitute": 10, "sim.env_steps": 5,
-                   "spd_factor_lanes": 10, "spd_substitute_lanes": 10}
+                   "spd_factor_lanes": 10, "spd_substitute_lanes": 10,
+                   "integrate_clamp": 10}
+    env.free_step_graphs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, stem", [
+    ("Humanoid", "humanoid"), ("ShadowHand", "shadow_hand")])
+def test_a_step_integrates_in_two_launches(name, stem):
+    """At 64 envs on the card: the first ``VecEnv.step`` runs eagerly and
+    captures, the next four replay; each of the five counts two launches of
+    the integration kernel (``launch_counts``, which replays add to), one
+    a substep."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    env, _ = _env(name, stem, device="cuda", n=64)
+    act = torch.zeros(64, env.task.act_dim, device="cuda")
+    for _ in range(5):
+        before = replay_counts()
+        env.step(act)
+        torch.cuda.synchronize()
+        after = replay_counts()
+        assert after["integrate_clamp"] - before["integrate_clamp"] == 2
+        assert after["sim.env_steps"] - before["sim.env_steps"] == 1
     env.free_step_graphs()

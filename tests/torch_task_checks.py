@@ -3,8 +3,8 @@
 DR spec against the JAX package's, physics steps with obs, reward and
 termination against JAX's from one numpy state, delta-distribution envs
 for the behaviour gates, the render, a tiny run of ``bayes_sim_main``,
-and the dispatch mode that finds host traffic in a captured body
-(tests/test_torch_{step_graph,train_graphs}.py)."""
+and, from ``torch_host_traffic``, the dispatch mode that finds host
+traffic in a captured body (tests/test_torch_{step_graph,train_graphs}.py)."""
 
 import os
 import pickle
@@ -12,7 +12,6 @@ import pickle
 import numpy as np
 import torch
 import yaml
-from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +21,8 @@ from bayes_sim_ig_tpu_torch.distributions import (
 )
 from bayes_sim_ig_tpu_torch.ops import spd_kernel, tree_solve
 from bayes_sim_ig_tpu_torch.sim import make_env
+
+from .torch_host_traffic import NoHostTraffic  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -197,29 +198,3 @@ def tiny_adr_run(task_name, stem, tmp_path, monkeypatch, env_edits,
     for leaf in out["env"].state.task_state:
         assert torch.isfinite(leaf).all()
     return out
-
-
-# Ops that stop a capture on a card: a host read of a device value, an
-# index whose size depends on the data, and a tensor made from host data
-# (its host-to-device copy).
-_SYNCING = {"aten._local_scalar_dense.default", "aten.nonzero.default",
-            "aten.lift_fresh.default", "aten.lift_fresh_copy.default"}
-
-
-class NoHostTraffic(TorchDispatchMode):
-    """Records every op of _SYNCING and every boolean-mask index run under
-    it (in ``hits``)."""
-
-    def __init__(self):
-        super().__init__()
-        self.hits = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        name = str(func)
-        mask_index = name.startswith("aten.index") and any(
-            isinstance(a, (list, tuple)) and any(
-                isinstance(t, torch.Tensor) and t.dtype == torch.bool
-                for t in a) for a in args)
-        if name in _SYNCING or mask_index:
-            self.hits.append(name)
-        return func(*args, **(kwargs or {}))
