@@ -12,30 +12,9 @@ does not take raises, and so does a failed build or launch.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .launch import check_cuda, launch
-
-# Kernel launches made by this process; read and reset by callers that
-# must show a run went through the kernel.
-LAUNCHES = {"integrate_clamp": 0}
-
-_FNS = None
-
-
-def _kernel_fns():
-    global _FNS
-    if _FNS is None:
-        from .build import load_library
-        lib = load_library("integrate", ["integrate.cu"])
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn = lib.integrate_clamp_f32
-        fn.argtypes = [ptr] * 7 + [i32] * 5 + [ctypes.c_float] * 3 + [ptr]
-        fn.restype = ctypes.c_int
-        _FNS = {"integrate_clamp": fn}
-    return _FNS
 
 
 def integrate_clamp_cuda(q: torch.Tensor, v: torch.Tensor, qdd: torch.Tensor,
@@ -68,8 +47,8 @@ def integrate_clamp_cuda(q: torch.Tensor, v: torch.Tensor, qdd: torch.Tensor,
     table, limits = table.contiguous(), limits.contiguous()
     (N, nq), nv = q.shape, v.shape[1]
     q_out, v_out = torch.empty_like(q), torch.empty_like(v)
-    launch("integrate", _kernel_fns(), LAUNCHES, "integrate_clamp", q.device,
-           q.data_ptr(), v.data_ptr(), qdd.data_ptr(), q_out.data_ptr(),
-           v_out.data_ptr(), table.data_ptr(), limits.data_ptr(), n_free,
-           n_j1, nq, nv, N, float(dt), float(max_lin), float(max_ang))
+    launch("integrate_clamp", q.device, q.data_ptr(), v.data_ptr(),
+           qdd.data_ptr(), q_out.data_ptr(), v_out.data_ptr(),
+           table.data_ptr(), limits.data_ptr(), n_free, n_j1, nq, nv, N,
+           float(dt), float(max_lin), float(max_ang))
     return q_out, v_out

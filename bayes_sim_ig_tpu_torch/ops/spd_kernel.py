@@ -22,20 +22,12 @@ step's non-finite quarantine then resets.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .launch import check_cuda, launch, on_cpu
 
-# Kernel launches made by this process, by entry point; read and reset by
-# callers that must show a run went through the kernels.
-LAUNCHES = {"factor": 0, "substitute": 0, "solve": 0}
-
 MAX_N = 32  # csrc/spd_lanes.cu MAX_N
 _MAX_RHS = 65535  # gridDim.y limit of the substitute launch
-
-_FNS = None
 
 
 # --------------------------------------------------------------------- #
@@ -87,29 +79,6 @@ def _chol_lanes_core(At: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------- #
 # The CUDA kernels.
 # --------------------------------------------------------------------- #
-def _kernel_fns():
-    global _FNS
-    if _FNS is None:
-        from .build import load_library
-        lib = load_library("spd_lanes", ["spd_lanes.cu"])
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.spd_factor_lanes_f32.argtypes = [ptr, ptr, i32, i32, ptr]
-        lib.spd_substitute_lanes_f32.argtypes = [ptr, ptr, ptr, i32, i32,
-                                                 i32, ptr]
-        lib.spd_solve_lanes_f32.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
-        for fn in (lib.spd_factor_lanes_f32, lib.spd_substitute_lanes_f32,
-                   lib.spd_solve_lanes_f32):
-            fn.restype = ctypes.c_int
-        _FNS = {"factor": lib.spd_factor_lanes_f32,
-                "substitute": lib.spd_substitute_lanes_f32,
-                "solve": lib.spd_solve_lanes_f32}
-    return _FNS
-
-
-def _launch(entry, dev, *args):
-    launch("spd_lanes", _kernel_fns(), LAUNCHES, entry, dev, *args)
-
-
 def _check_systems(name, At):
     if At.ndim != 3 or At.shape[0] != At.shape[1]:
         raise ValueError(f"{name} needs At (n, n, N), got {tuple(At.shape)}")
@@ -125,7 +94,7 @@ def spd_factor_lanes_cuda(At: torch.Tensor) -> torch.Tensor:
     At = At.contiguous()  # the physics hands in transposed views
     n, _, N = At.shape
     Lt = torch.empty_like(At)
-    _launch("factor", At.device, At.data_ptr(), Lt.data_ptr(), n, N)
+    launch("spd_factor_lanes", At.device, At.data_ptr(), Lt.data_ptr(), n, N)
     return Lt
 
 
@@ -146,8 +115,8 @@ def spd_substitute_lanes_cuda(Lt: torch.Tensor,
                          f"{_MAX_RHS} right-hand sides, got {k}")
     Lt, bt = Lt.contiguous(), bt.contiguous()
     xt = torch.empty_like(bt)
-    _launch("substitute", Lt.device, Lt.data_ptr(), bt.data_ptr(),
-            xt.data_ptr(), n, k, N)
+    launch("spd_substitute_lanes", Lt.device, Lt.data_ptr(), bt.data_ptr(),
+           xt.data_ptr(), n, k, N)
     return xt
 
 
@@ -162,8 +131,8 @@ def spd_solve_lanes_cuda(At: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
                          f"{tuple(bt.shape)}")
     At, bt = At.contiguous(), bt.contiguous()
     xt = torch.empty_like(bt)
-    _launch("solve", At.device, At.data_ptr(), bt.data_ptr(), xt.data_ptr(),
-            n, N)
+    launch("spd_solve_lanes", At.device, At.data_ptr(), bt.data_ptr(),
+           xt.data_ptr(), n, N)
     return xt
 
 

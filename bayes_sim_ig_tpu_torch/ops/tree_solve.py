@@ -41,11 +41,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from .launch import check_cuda, launch, on_cpu
-
-# Kernel launches made by this process, by entry point; read and reset by
-# callers that must show a run went through the kernels.
-LAUNCHES = {"factor": 0, "substitute": 0, "upsolve": 0, "downsolve": 0}
+from .launch import check_cuda, entry_fn, launch, on_cpu
 
 # csrc/tree_ltdl.cu bounds: dofs, ancestor pairs, right-hand sides.
 MAX_NV = 256
@@ -66,7 +62,6 @@ HALF_KB = 8
 HALF_MIN_WARPS = 4
 _SMEM_LIMIT = 232448
 
-_FNS = None
 _TABLES: dict = {}
 
 
@@ -446,55 +441,13 @@ def ltdl_downsolve_plain(chains, H: torch.Tensor, z: torch.Tensor):
 # --------------------------------------------------------------------- #
 # Tensor form: the CUDA kernels.
 # --------------------------------------------------------------------- #
-def bind_half_solves(lib):
-    """Sets the ctypes signatures of a library's half-solve entries
-    (``tree_ltdl_upsolve_f32``, ``tree_ltdl_downsolve_f32``)."""
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for half in (lib.tree_ltdl_upsolve_f32, lib.tree_ltdl_downsolve_f32):
-        half.argtypes = [ptr, i32, i32, i32, i32, i32, ptr, ptr, ptr, i32,
-                         i32, ptr]
-        half.restype = ctypes.c_int
-
-
-def _half_lib():
-    from .build import load_library
-    lib = load_library("tree_half", ["tree_half.cu"])
-    bind_half_solves(lib)
-    i32p = ctypes.POINTER(ctypes.c_int)
-    lib.tree_half_plan.argtypes = [ctypes.c_int] * 4 + [i32p] * 4
-    lib.tree_half_plan.restype = None
-    return lib
-
-
-def _kernel_fns():
-    global _FNS
-    if _FNS is None:
-        from .build import load_library
-        lib = load_library("tree_ltdl", ["tree_ltdl.cu"])
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.tree_ltdl_factor_f32.argtypes = [ptr, i32, i32, i32, i32, i32,
-                                             ptr, ptr, ptr, i32, ptr]
-        lib.tree_ltdl_substitute_f32.argtypes = [ptr, i32, i32, i32, i32,
-                                                 i32, ptr, ptr, ptr, ptr,
-                                                 i32, i32, ptr]
-        for fn in (lib.tree_ltdl_factor_f32, lib.tree_ltdl_substitute_f32):
-            fn.restype = ctypes.c_int
-        half = _half_lib()
-        _FNS = {"factor": lib.tree_ltdl_factor_f32,
-                "substitute": lib.tree_ltdl_substitute_f32,
-                "upsolve": half.tree_ltdl_upsolve_f32,
-                "downsolve": half.tree_ltdl_downsolve_f32,
-                "half_plan": half.tree_half_plan}
-    return _FNS
-
-
 def half_plan_cuda(nv: int, E: int, K: int,
                    N: int) -> Tuple[bool, int, int, int]:
     """The launch csrc/tree_half.cu plans for a shape on the current card
     (its ``tree_half_plan``): (lanes, Kb, warps, bytes), as
     ``half_plan``."""
     out = [ctypes.c_int() for _ in range(4)]
-    _kernel_fns()["half_plan"](nv, E, K, N, *map(ctypes.byref, out))
+    entry_fn("tree_half_plan")(nv, E, K, N, *map(ctypes.byref, out))
     lanes, *rest = (v.value for v in out)
     return (bool(lanes), *rest)
 
@@ -508,10 +461,6 @@ def _kernel_tables(name, chains) -> TreeTables:
         raise ValueError(f"{name} needs chains[k] == [parent, *chains[parent]]"
                          f" with parent < k for every dof")
     return tt
-
-
-def _launch(entry, dev, *args):
-    launch("tree_ltdl", _kernel_fns(), LAUNCHES, entry, dev, *args)
 
 
 def _table_args(tt: TreeTables, device):
@@ -530,8 +479,8 @@ def ltdl_factor_cuda(chains, Mp: torch.Tensor):
     N = Mp.shape[1]
     H = torch.empty_like(Mp)
     D = Mp.new_empty(tt.nv, N)
-    _launch("factor", Mp.device, *_table_args(tt, Mp.device),
-            Mp.data_ptr(), H.data_ptr(), D.data_ptr(), N)
+    launch("tree_ltdl_factor", Mp.device, *_table_args(tt, Mp.device),
+           Mp.data_ptr(), H.data_ptr(), D.data_ptr(), N)
     return H, D
 
 
@@ -562,21 +511,21 @@ def ltdl_substitute_cuda(chains, factor, b: torch.Tensor) -> torch.Tensor:
     k = _rhs_count("ltdl_substitute_cuda", tt, H, b, D)
     H, D, b = H.contiguous(), D.contiguous(), b.contiguous()
     x = torch.empty_like(b)
-    _launch("substitute", H.device, *_table_args(tt, H.device),
-            H.data_ptr(), D.data_ptr(), b.data_ptr(), x.data_ptr(), k,
-            H.shape[1])
+    launch("tree_ltdl_substitute", H.device, *_table_args(tt, H.device),
+           H.data_ptr(), D.data_ptr(), b.data_ptr(), x.data_ptr(), k,
+           H.shape[1])
     return x
 
 
-def _half_solve_cuda(entry, chains, H: torch.Tensor, b: torch.Tensor):
-    name = f"ltdl_{entry}_cuda"
+def _half_solve_cuda(half, chains, H: torch.Tensor, b: torch.Tensor):
+    name = f"ltdl_{half}_cuda"
     check_cuda(name, H, b, no_grad=True)
     tt = _kernel_tables(name, chains)
     k = _rhs_count(name, tt, H, b)
     H, b = H.contiguous(), b.contiguous()
     x = torch.empty_like(b)
-    _launch(entry, H.device, *_table_args(tt, H.device), H.data_ptr(),
-            b.data_ptr(), x.data_ptr(), k, H.shape[1])
+    launch(f"tree_ltdl_{half}", H.device, *_table_args(tt, H.device),
+           H.data_ptr(), b.data_ptr(), x.data_ptr(), k, H.shape[1])
     return x
 
 

@@ -11,7 +11,7 @@ from .model import ArticulatedModel, LinkSpec, Geom, DynParams, JOINT_DOF
 from .dynamics import (
     forward_kinematics, forward_dynamics, integrate, mass_matrix,
     bias_forces, clamp_limits, integrate_and_clamp, dof_positions,
-    carried_mass_factor, mass_factor_solve, external_generalized_force,
+    mass_factor_solve, external_generalized_force,
 )
 from .contact import (
     ground_contact_forces, contact_points, sphere_plane_pair_forces,
@@ -25,8 +25,7 @@ __all__ = [
     "ArticulatedModel", "LinkSpec", "Geom", "DynParams", "JOINT_DOF",
     "forward_kinematics", "forward_dynamics", "integrate", "mass_matrix",
     "bias_forces", "clamp_limits", "integrate_and_clamp", "dof_positions",
-    "carried_mass_factor", "mass_factor_solve",
-    "external_generalized_force",
+    "mass_factor_solve", "external_generalized_force",
     "ground_contact_forces", "contact_points",
     "sphere_plane_pair_forces", "sphere_plane_pairs_forces",
     "sphere_box_pairs_forces", "sphere_sphere_pairs_forces",

@@ -35,7 +35,6 @@ device and cached on the model.
 
 from __future__ import annotations
 
-import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -597,18 +596,6 @@ def mass_matrix(model: ArticulatedModel, kin: Kinematics, I_sp):
         I_sp = I_sp[..., None]
     M = _mass_from_plucker(model, kin, _inertia_to_plucker(kin, I_sp))
     return M[..., 0] if single else torch.movedim(M, -1, 0)
-
-
-def carried_mass_factor(factor, default=False):
-    """Gate for the frozen-mass-matrix substep scheme: returns the factor
-    carried from the previous substep, so ``forward_dynamics`` skips the
-    CRBA build and factorization, or None for a fresh factorization.
-    ``default`` is the calling task's preference (Ant: on; Humanoid and
-    stiff-drive tasks: off, a learnability decision of the JAX package);
-    ``BSIM_FROZEN_MASS=1``/``=0`` forces it either way."""
-    v = os.environ.get("BSIM_FROZEN_MASS", "")
-    frozen = default if v == "" else v == "1"
-    return factor if frozen else None
 
 
 def joint_passive_torque(model: ArticulatedModel, params: DynParams, q_dof,

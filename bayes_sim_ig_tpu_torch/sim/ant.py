@@ -18,7 +18,7 @@ dof_vel(8)].
 
 Each env step runs two physics substeps with the frozen-mass scheme: the
 mass matrix is factored on the first substep and the factor is reused on
-the second (``carried_mass_factor(..., default=True)``).
+the second.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from ..parallel.mesh import env_draw
 from ..physics import (
     ArticulatedModel, LinkSpec, Geom, DynParams,
     forward_kinematics, forward_dynamics, integrate_and_clamp,
-    carried_mass_factor, ground_contact_forces,
+    ground_contact_forces,
 )
 from ..physics.spatial import quat_to_rot
 from .render2d import draw_line
@@ -218,17 +218,15 @@ class Ant(Task):
         tau_act[:, self._act_v] = (torch.clamp(actions, -1, 1) * 30.0
                                        * self.power_scale)
         h = self.dt / self.substeps
-        # The carried factor feeds the frozen-mass substep scheme, on by
-        # default for this sprawled, passively stable task
-        # (carried_mass_factor; BSIM_FROZEN_MASS overrides).
+        # The frozen-mass substep scheme, for this sprawled, passively
+        # stable task: the first substep's factor serves the second.
         q, v, factor = state.q, state.v, None
         for _ in range(self.substeps):
             kin = forward_kinematics(m, q, v, dp)
             f_ext = ground_contact_forces(m, kin, dp, dt=h)
             qdd, _, factor = forward_dynamics(
                 m, q, v, tau_act, dp, f_ext, dt=h, kin=kin,
-                factor=carried_mass_factor(factor, default=True),
-                return_factor=True)
+                factor=factor, return_factor=True)
             q, v = integrate_and_clamp(m, q, v, qdd, h)
         return AntState(q=q, v=v)
 

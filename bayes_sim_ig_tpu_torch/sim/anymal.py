@@ -33,7 +33,7 @@ from ..parallel.mesh import env_draw
 from ..physics import (
     ArticulatedModel, LinkSpec, Geom, DynParams,
     forward_kinematics, forward_dynamics, integrate_and_clamp,
-    carried_mass_factor, ground_contact_forces,
+    ground_contact_forces,
 )
 from ..physics.spatial import quat_to_rot
 from .render2d import draw_line
@@ -199,17 +199,13 @@ class Anymal(Task):
         tgt_dof = actions.new_zeros(n, m.nv)
         tgt_dof[:, self._act_v] = self._default_dof + a * self.action_scale
         zero_tau = actions.new_zeros(n, m.nv)
-        # A fresh factor on each substep (carried_mass_factor's default;
-        # BSIM_FROZEN_MASS=1 forces the frozen-mass scheme).
-        q, v, factor = state.q, state.v, None
+        q, v = state.q, state.v
         for _ in range(self.substeps):
             kin = forward_kinematics(m, q, v, dp)
             f_ext = ground_contact_forces(m, kin, dp, dt=h)
-            qdd, _, factor = forward_dynamics(
-                m, q, v, zero_tau, dp, f_ext, dt=h, kin=kin,
-                factor=carried_mass_factor(factor), return_factor=True,
-                drive_kp=kp_dof, drive_kd=kd_dof, drive_target=tgt_dof,
-                drive_effort=80.0)
+            qdd, _ = forward_dynamics(
+                m, q, v, zero_tau, dp, f_ext, dt=h, kin=kin, drive_kp=kp_dof,
+                drive_kd=kd_dof, drive_target=tgt_dof, drive_effort=80.0)
             q, v = integrate_and_clamp(m, q, v, qdd, h)
         return AnymalState(q=q, v=v, commands=state.commands,
                            prev_actions=a)

@@ -36,7 +36,7 @@ from ..parallel.mesh import env_draw
 from ..physics import (
     ArticulatedModel, LinkSpec, Geom, DynParams,
     forward_kinematics, forward_dynamics, integrate_and_clamp,
-    carried_mass_factor, ground_contact_forces, sphere_plane_pair_forces,
+    ground_contact_forces, sphere_plane_pair_forces,
 )
 from ..physics.spatial import quat_to_rot
 from ..utils.device import resolve_device
@@ -194,9 +194,7 @@ class BallBalance(Task):
         # Actions drive the three lower-leg joints.
         tau = actions.new_zeros(actions.shape[0], m.nv)
         tau[:, self._lower_v] = torch.clamp(actions, -1, 1) * 20.0
-        # A fresh factor on each substep (carried_mass_factor's default;
-        # BSIM_FROZEN_MASS=1 forces the frozen-mass scheme).
-        q, v, factor = state.q, state.v, None
+        q, v = state.q, state.v
         for _ in range(self.substeps):
             kin = forward_kinematics(m, q, v, dp)
             f_ext = ground_contact_forces(m, kin, dp, dt=h)
@@ -206,9 +204,7 @@ class BallBalance(Task):
                 plane_link=0, plane_point=(0, 0, 0.02),
                 plane_normal=(0, 0, 1), mu=1.0, dt=h,
                 plane_halfsize=TRAY_R)
-            qdd, _, factor = forward_dynamics(
-                m, q, v, tau, dp, f_ext, dt=h, kin=kin,
-                factor=carried_mass_factor(factor), return_factor=True)
+            qdd, _ = forward_dynamics(m, q, v, tau, dp, f_ext, dt=h, kin=kin)
             q, v = integrate_and_clamp(m, q, v, qdd, h)
         return BBotState(q=q, v=v)
 

@@ -32,7 +32,7 @@ from ..dr import TaskNames, build_params_spec
 from ..parallel.mesh import env_draw
 from ..physics import (
     ArticulatedModel, LinkSpec, DynParams, forward_dynamics,
-    integrate_and_clamp, carried_mass_factor,
+    integrate_and_clamp,
 )
 from ..physics.spatial import quat_to_rot
 from .render2d import draw_line
@@ -157,15 +157,11 @@ class _FlyerBase(Task):
             tgt[:, self._dof_v] = targets
             drive = dict(drive_kp=kp, drive_kd=kd, drive_target=tgt)
         zero_tau = actions.new_zeros(n, m.nv)
-        # A fresh factor on each substep (carried_mass_factor's default;
-        # BSIM_FROZEN_MASS=1 forces the frozen-mass scheme).
-        q, v, factor = state.q, state.v, None
+        q, v = state.q, state.v
         for _ in range(self.substeps):
             f_ext = self._thrust_forces(q, actions)
-            qdd, _, factor = forward_dynamics(
-                m, q, v, zero_tau, dp, f_ext, dt=h,
-                factor=carried_mass_factor(factor), return_factor=True,
-                **drive)
+            qdd, _ = forward_dynamics(m, q, v, zero_tau, dp, f_ext, dt=h,
+                                      **drive)
             q, v = integrate_and_clamp(m, q, v, qdd, h)
         return FlyerState(q=q, v=v)
 

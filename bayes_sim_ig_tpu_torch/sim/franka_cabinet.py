@@ -35,7 +35,7 @@ from ..parallel.mesh import env_draw
 from ..physics import (
     ArticulatedModel, LinkSpec, DynParams,
     forward_kinematics, forward_dynamics, integrate_and_clamp,
-    carried_mass_factor, sphere_plane_pair_forces,
+    sphere_plane_pair_forces,
 )
 from ..utils.device import resolve_device
 from .task import Task
@@ -239,9 +239,7 @@ class FrankaCabinet(Task):
         tgt_dof = actions.new_zeros(n, m.nv)
         tgt_dof[:, self._dof_v_t] = targets
         zero_tau = actions.new_zeros(n, m.nv)
-        # A fresh factor on each substep (carried_mass_factor's default;
-        # BSIM_FROZEN_MASS=1 forces the frozen-mass scheme).
-        q, v, factor = state.q, state.v, None
+        q, v = state.q, state.v
         for _ in range(self.substeps):
             kin = forward_kinematics(m, q, v, dp)
             # Finger pads gripping the drawer handle: the handle sphere vs
@@ -256,11 +254,9 @@ class FrankaCabinet(Task):
                     plane_normal=(0.0, sy, 0.0), mu=1.5, dt=h,
                     plane_halfsize=0.025)
                 f_ext = f if f_ext is None else f_ext + f
-            qdd, _, factor = forward_dynamics(
-                m, q, v, zero_tau, dp, f_ext, dt=h, kin=kin,
-                factor=carried_mass_factor(factor), return_factor=True,
-                drive_kp=kp_dof, drive_kd=kd_dof, drive_target=tgt_dof,
-                drive_effort=87.0)
+            qdd, _ = forward_dynamics(
+                m, q, v, zero_tau, dp, f_ext, dt=h, kin=kin, drive_kp=kp_dof,
+                drive_kd=kd_dof, drive_target=tgt_dof, drive_effort=87.0)
             q, v = integrate_and_clamp(m, q, v, qdd, h)
         return FrankaState(q=q, v=v, targets=targets)
 

@@ -23,8 +23,8 @@ Obs (55): [z, quat(4), local linvel(3), local angvel(3), up_proj, heading,
 dof_pos(21), dof_vel(21)].
 
 Each env step runs two physics substeps and factors the mass matrix fresh
-on each (``carried_mass_factor(factor)``, default off: a frozen-mass
-Humanoid never learns to run in the JAX package's PPO A/B).
+on each (a frozen-mass Humanoid never learns to run in the JAX package's
+PPO A/B).
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ from ..parallel.mesh import env_draw
 from ..physics import (
     ArticulatedModel, LinkSpec, Geom, DynParams,
     forward_dynamics, forward_kinematics, integrate_and_clamp,
-    carried_mass_factor, ground_contact_forces,
+    ground_contact_forces,
 )
 from ..physics.spatial import quat_to_rot
 from .render2d import draw_line
@@ -279,16 +279,11 @@ class Humanoid(Task):
         tau = actions.new_zeros(actions.shape[0], m.nv)
         tau[:, self._act_v] = (torch.clamp(actions, -1, 1) * self._gears
                                * self.power_scale)
-        # A fresh factor on each substep: the frozen-mass scheme is off by
-        # default for this task (carried_mass_factor; BSIM_FROZEN_MASS=1
-        # forces it on for throughput A/Bs).
-        q, v, factor = state.q, state.v, None
+        q, v = state.q, state.v
         for _ in range(self.substeps):
             kin = forward_kinematics(m, q, v, dp)
             f_ext = ground_contact_forces(m, kin, dp, dt=h)
-            qdd, _, factor = forward_dynamics(
-                m, q, v, tau, dp, f_ext, dt=h, kin=kin,
-                factor=carried_mass_factor(factor), return_factor=True)
+            qdd, _ = forward_dynamics(m, q, v, tau, dp, f_ext, dt=h, kin=kin)
             q, v = integrate_and_clamp(m, q, v, qdd, h)
         return HumanoidState(q=q, v=v)
 

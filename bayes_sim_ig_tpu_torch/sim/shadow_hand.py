@@ -56,7 +56,7 @@ from ..parallel.mesh import env_draw
 from ..physics import (
     ArticulatedModel, LinkSpec, Geom, DynParams,
     forward_kinematics, forward_dynamics, integrate_and_clamp,
-    carried_mass_factor, external_generalized_force,
+    external_generalized_force,
 )
 from ..physics.contact import (contact_pairs_impulse_apply,
                                contact_pairs_impulse_prepare,
@@ -638,7 +638,7 @@ class ShadowHand(Task):
         tgt_dof = actions.new_zeros(n_env, m.nv)
         tgt_dof[:, self._act_v] = targets
 
-        q, v, factor = state.q, state.v, None
+        q, v = state.q, state.v
         prep = warm = stash = None
         for sub in range(self.substeps):
             # Tendon coupling: spring-damper pulling q_J1 toward q_J0.
@@ -670,8 +670,7 @@ class ShadowHand(Task):
             geo = tuple(torch.cat([p, b[:self._n_sph], c], 0)
                         for p, b, c in zip(geo_palm, geo_box, geo_ss))
             qdd, _, factor = forward_dynamics(
-                m, q, v, tau, dp, f_ext, dt=h, kin=kin,
-                factor=carried_mass_factor(factor), return_factor=True,
+                m, q, v, tau, dp, f_ext, dt=h, kin=kin, return_factor=True,
                 drive_kp=kp_dof, drive_kd=kd_dof, drive_target=tgt_dof,
                 drive_effort=DRIVE_EFFORT)
             # Velocity-level contacts before the position update: Coulomb

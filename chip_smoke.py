@@ -330,21 +330,14 @@ def phase_device():
 
 
 def phase_build():
-    from bayes_sim_ig_tpu_torch.ops import (
-        build, integrate_kernel, rff_kernel, spd_kernel, tree_solve,
-    )
-    loaders = {"rff_features": rff_kernel._kernel_fn,
-               "spd_lanes": spd_kernel._kernel_fns,
-               "tree_ltdl": tree_solve._kernel_fns,
-               "tree_half": tree_solve._half_lib,
-               "integrate": integrate_kernel._kernel_fns}
+    from bayes_sim_ig_tpu_torch.ops import build, launch
+    libraries = list(launch.LIBRARIES)
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
-        futures = {name: pool.submit(fn) for name, fn in loaders.items()}
-        for fut in futures.values():
+    with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
+        for fut in [pool.submit(launch.load, name) for name in libraries]:
             fut.result()
     secs = time.perf_counter() - t0
-    for name in loaders:
+    for name in libraries:
         log = build.BUILD_LOG.get(name, {})
         ptxas = " ".join(line.strip() for line in log.get(
             "ptxas", "").split("\n")
@@ -352,8 +345,8 @@ def phase_build():
         print(f"[build] {name}: "
               f"{'compiled in %.2f s' % log['seconds'] if log else 'cached'}"
               f"; {ptxas}", flush=True)
-    print(f"[build] {len(loaders)} libraries built and loaded in {secs:.2f} s",
-          flush=True)
+    print(f"[build] {len(libraries)} libraries built and loaded in "
+          f"{secs:.2f} s", flush=True)
 
 
 def _median_ms(fn, n=50, warmup=5):

@@ -58,7 +58,8 @@ import numpy as np
 import torch
 
 import chip_smoke as cs
-from bayes_sim_ig_tpu_torch.ops import bounds, build, spd_kernel as sk
+from bayes_sim_ig_tpu_torch.ops import bounds, build, launch
+from bayes_sim_ig_tpu_torch.ops import spd_kernel as sk
 from bayes_sim_ig_tpu_torch.ops import tree_solve as ts
 
 OUT = os.path.join(cs.HERE, "chiprun_out", "kernel_ab.json")
@@ -95,7 +96,8 @@ def _old_fns(old_dir):
     with concurrent.futures.ThreadPoolExecutor(4) as pool:
         spd = pool.submit(_build_old, old_dir, "spd_lanes")
         tree = pool.submit(_build_old, old_dir, "tree_ltdl")
-        new = [pool.submit(sk._kernel_fns), pool.submit(ts._kernel_fns)]
+        new = [pool.submit(launch.load, lib)
+               for lib in ("spd_lanes", "tree_ltdl")]
         spd, tree = spd.result(), tree.result()
         for f in new:
             f.result()
@@ -300,7 +302,7 @@ def floors():
         tt.off, tt.anc, down.ravel(), [ts._FIRST_ROUND | ts._LAST_ROUND],
         np.full(ts.GROUP, -1), begin, entries]).astype(np.int32)
     table = torch.as_tensor(empty, device="cuda:0")
-    fn = ts._kernel_fns()["factor"]
+    fn = launch.entry_fn("tree_ltdl_factor")
     out["tree_factor_no_rounds"] = _measure(lambda: _call(
         fn, table.data_ptr(), table.numel(), tt.nv, tt.E, len(down), 1,
         Mp.data_ptr(), H.data_ptr(), D.data_ptr(), 4096))
@@ -312,11 +314,8 @@ def tree_same(old_dir):
     """The current tree kernels against an older source of the same C
     interface: bit for bit, then timed in turns."""
     old = _build_old(old_dir, "tree_ltdl")
-    ts._kernel_fns()
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    old.tree_ltdl_factor_f32.argtypes = [ptr, i32, i32, i32, i32, i32, ptr,
-                                         ptr, ptr, i32, ptr]
-    _bind_old_substitute(old)
+    launch.load("tree_ltdl")
+    launch.bind("tree_ltdl", old)
     out = {}
     for tree, N in TREE_SAME:
         chains = cs._tree_chains(tree)
@@ -359,28 +358,26 @@ def tree_same(old_dir):
     return out
 
 
-def _bind_old_substitute(old):
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    old.tree_ltdl_substitute_f32.argtypes = [ptr, i32, i32, i32, i32, i32,
-                                             ptr, ptr, ptr, ptr, i32, i32,
-                                             ptr]
-
-
-def _half_libs(old_dir):
+def _half_builds(old_dir):
     """The old tree_ltdl.cu and csrc/tree_half.cu's variants, built in
-    parallel, their half-solve entries bound."""
+    parallel, their half-solve entries (and the old substitute) bound
+    through the package's table."""
     src = os.path.join(build.CSRC_DIR, "tree_half.cu")
-    with concurrent.futures.ThreadPoolExecutor(len(HALF_VARIANTS) + 2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(HALF_VARIANTS) + 3) as pool:
         old = pool.submit(_build_old, old_dir, "tree_ltdl")
         variants = {name: pool.submit(_build_old, old_dir, "tree_half", src,
                                       name, flags)
                     for name, flags in HALF_VARIANTS.items()}
-        pool.submit(ts._kernel_fns).result()
+        new = [pool.submit(launch.load, lib)
+               for lib in ("tree_ltdl", "tree_half")]
         old = old.result()
+        for f in new:
+            f.result()
         variants = {name: f.result() for name, f in variants.items()}
-    for lib in (old, *variants.values()):
-        ts.bind_half_solves(lib)
-    _bind_old_substitute(old)
+    for lib in variants.values():
+        launch.bind("tree_half", lib)
+    launch.bind("tree_half", old, ("tree_ltdl_upsolve", "tree_ltdl_downsolve"))
+    launch.bind("tree_ltdl", old, ("tree_ltdl_substitute",))
     return old, variants
 
 
@@ -398,7 +395,7 @@ def _half_input(tree, N, K):
 def half_same(old_dir):
     """csrc/tree_half.cu against the old half-solves and the current
     substitute against the old one: bit for bit, then timed in turns."""
-    old, variants = _half_libs(old_dir)
+    old, variants = _half_builds(old_dir)
     dev = torch.device("cuda:0")
     out = {"bit_for_bit": {}, "times": {}, "plans": {}}
     for tree, N, K in HALF_SAME:

@@ -176,7 +176,7 @@ def test_adr_loop_runs_on_cpu(tmp_path, monkeypatch):
     one ADR iteration through the physics, MDNN and PPO; a finite 17-dim
     posterior on disk."""
     from bayes_sim_ig_tpu_torch import bayes_sim_main
-    from bayes_sim_ig_tpu_torch.ops import spd_kernel
+    from bayes_sim_ig_tpu_torch.ops.launch import launch_counts
     monkeypatch.setattr(bayes_sim_main, "_plot_posterior",
                         lambda *a, **k: None)
     cfg = _cfg(8)
@@ -185,12 +185,12 @@ def test_adr_loop_runs_on_cpu(tmp_path, monkeypatch):
     cfg_path = tmp_path / "ant.yaml"
     with open(cfg_path, "w") as f:
         yaml.safe_dump(cfg, f, sort_keys=False)
-    before = dict(spd_kernel.LAUNCHES)
+    before = launch_counts()
     out = bayes_sim_main.main([
         "--task", "Ant", "--cfg_env", str(cfg_path), "--logdir",
         str(tmp_path / "logs"), "--max_iterations", "1", "--rl_device",
         "cpu"])
-    assert spd_kernel.LAUNCHES == before  # CPU tensors: the plain version
+    assert launch_counts() == before  # CPU tensors: the plain version
     assert type(out["bsim"].model).__name__ == "MDNN"
     assert len(out["iter_secs"]) == 1
     with open(os.path.join(out["logdir"], "checkpoints",

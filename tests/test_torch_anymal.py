@@ -96,17 +96,15 @@ def test_flat_sample_consumed_fully(tasks):
 
 def test_fresh_factor_on_every_substep(tasks, monkeypatch):
     """Anymal refactors on each of its 2 substeps: forcing the frozen
-    scheme changes the step, so the default really was fresh."""
+    scheme changes the step, so the factor really was fresh."""
+    from bayes_sim_ig_tpu_torch.sim import anymal
     _, tt = tasks
     params = torch.from_numpy(tc.params_in_box(tt, N, 3))
     st = tt.init_state(torch.Generator().manual_seed(3), params)
     st = st._replace(v=torch.full_like(st.v, 0.3))
     act = torch.full((N, 12), 0.5)
-    monkeypatch.delenv("BSIM_FROZEN_MASS", raising=False)
-    fresh = tt.physics_step(st, act, params, None)
-    monkeypatch.setenv("BSIM_FROZEN_MASS", "1")
-    assert not torch.equal(tt.physics_step(st, act, params, None).v,
-                           fresh.v)
+    tc.fresh_factor_on_every_substep(anymal, tt, st, act, params,
+                                     monkeypatch)
 
 
 def test_whole_actor_scale_dr():

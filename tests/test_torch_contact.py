@@ -24,7 +24,7 @@ import bayes_sim_ig_tpu.physics.contact as jc
 import bayes_sim_ig_tpu_torch.physics as tphys
 import bayes_sim_ig_tpu_torch.physics.contact as tc
 import bayes_sim_ig_tpu_torch.physics.dynamics as tdyn
-from bayes_sim_ig_tpu_torch.ops import tree_solve
+from bayes_sim_ig_tpu_torch.ops.launch import launch_counts
 from bayes_sim_ig_tpu_torch.utils.convert import dynparams_from_jax
 
 torch.set_num_threads(1)
@@ -347,9 +347,9 @@ def test_compact_matches_dense(impulse_case, monkeypatch):
 
 def test_impulse_leaves_kernel_counts_on_cpu(impulse_case, monkeypatch):
     jm, tm, q, v, geo = impulse_case
-    before = dict(tree_solve.LAUNCHES)
+    before = launch_counts()
     _port_impulse(tm, q, v, geo, monkeypatch, tree=True)
-    assert tree_solve.LAUNCHES == before
+    assert launch_counts() == before
 
 
 def _sphere_impulse(pkg, c_mod, model, gap, vx_b=-1.0):

@@ -24,6 +24,7 @@ from bayes_sim_ig_tpu.ops import tree_solve as jts
 from bayes_sim_ig_tpu.sim.shadow_hand import build_hand_model
 from bayes_sim_ig_tpu_torch.ops import bounds
 from bayes_sim_ig_tpu_torch.ops import tree_solve as tts
+from bayes_sim_ig_tpu_torch.ops.launch import launch_counts
 
 from .test_torch_tree_solve import _random_chains, _system
 
@@ -155,12 +156,12 @@ def test_half_solves_around_d_are_the_substitute(tree):
 def test_cpu_entry_points_run_the_plain_version():
     chains = TREES["shadow_hand"]
     H, _, b = _factor(chains, 5, k=4)
-    before = dict(tts.LAUNCHES)
+    before = launch_counts()
     assert torch.equal(tts.tree_upsolve(chains, H, b),
                        tts.ltdl_upsolve_plain(chains, H, b))
     assert torch.equal(tts.tree_downsolve(chains, H, b[0]),
                        tts.ltdl_downsolve_plain(chains, H, b[0]))
-    assert tts.LAUNCHES == before
+    assert launch_counts() == before
 
 
 @pytest.mark.parametrize("fn", ["ltdl_upsolve_cuda", "ltdl_downsolve_cuda"])
@@ -345,12 +346,13 @@ def test_half_solve_kernels_match_plain_on_card(tree, n, k):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     chains, H, D, b = _card(tree, n, k)
-    before = dict(tts.LAUNCHES)
+    before = launch_counts()
     z = tts.tree_upsolve(chains, H, b)
     x = tts.tree_downsolve(chains, H, b)
     torch.cuda.synchronize()
-    assert tts.LAUNCHES["upsolve"] == before["upsolve"] + 1
-    assert tts.LAUNCHES["downsolve"] == before["downsolve"] + 1
+    after = launch_counts()
+    for kind in ("tree_ltdl_upsolve", "tree_ltdl_downsolve"):
+        assert after[kind] == before[kind] + 1
     torch.testing.assert_close(z, tts.ltdl_upsolve_plain(chains, H, b),
                                **TOL)
     torch.testing.assert_close(x, tts.ltdl_downsolve_plain(chains, H, b),

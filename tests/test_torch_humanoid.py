@@ -34,10 +34,13 @@ from bayes_sim_ig_tpu.sim.humanoid import (
 import bayes_sim_ig_tpu_torch.physics as tphys
 import bayes_sim_ig_tpu_torch.physics.dynamics as tdyn
 from bayes_sim_ig_tpu_torch.distributions import MoG, Uniform, to_device_distr
-from bayes_sim_ig_tpu_torch.ops import spd_kernel, tree_solve
+from bayes_sim_ig_tpu_torch.ops import tree_solve
+from bayes_sim_ig_tpu_torch.ops.launch import launch_counts
 from bayes_sim_ig_tpu_torch.sim import available_tasks, make_env
 from bayes_sim_ig_tpu_torch.sim.humanoid import Humanoid, HumanoidState
 from bayes_sim_ig_tpu_torch.utils.convert import dynparams_from_jax
+
+from . import torch_task_checks as tc
 
 torch.set_num_threads(1)
 
@@ -238,18 +241,14 @@ def test_physics_obs_and_reward_match_jax_over_5_steps():
 
 def test_fresh_factor_on_every_substep(monkeypatch):
     """Humanoid refactors on each of its 2 substeps: forcing the frozen
-    scheme changes the step, so the default really was fresh."""
+    scheme changes the step, so the factor really was fresh."""
+    from bayes_sim_ig_tpu_torch.sim import humanoid
     tt = Humanoid(_cfg(), device="cpu")
     params, q, v, rs = _state(tt, 4)
     st = HumanoidState(torch.from_numpy(q), torch.from_numpy(v))
     tp = torch.from_numpy(params)
     act = torch.from_numpy(rs.uniform(-0.3, 0.3, (N, 21)).astype(np.float32))
-    monkeypatch.delenv("BSIM_FROZEN_MASS", raising=False)
-    fresh = tt.physics_step(st, act, tp, None)
-    monkeypatch.setenv("BSIM_FROZEN_MASS", "0")
-    assert torch.equal(tt.physics_step(st, act, tp, None).v, fresh.v)
-    monkeypatch.setenv("BSIM_FROZEN_MASS", "1")
-    assert not torch.equal(tt.physics_step(st, act, tp, None).v, fresh.v)
+    tc.fresh_factor_on_every_substep(humanoid, tt, st, act, tp, monkeypatch)
 
 
 def test_init_state_bounds():
@@ -343,12 +342,12 @@ def test_adr_loop_runs_on_cpu(tmp_path, monkeypatch):
     cfg_path = tmp_path / "humanoid.yaml"
     with open(cfg_path, "w") as f:
         yaml.safe_dump(cfg, f, sort_keys=False)
-    before = (dict(tree_solve.LAUNCHES), dict(spd_kernel.LAUNCHES))
+    before = launch_counts()
     out = bayes_sim_main.main([
         "--task", "Humanoid", "--cfg_env", str(cfg_path), "--logdir",
         str(tmp_path / "logs"), "--max_iterations", "1", "--rl_device",
         "cpu"])
-    assert (tree_solve.LAUNCHES, spd_kernel.LAUNCHES) == before
+    assert launch_counts() == before
     assert type(out["bsim"].model).__name__ == "MDNN"
     assert len(out["iter_secs"]) == 1
     with open(os.path.join(out["logdir"], "checkpoints",

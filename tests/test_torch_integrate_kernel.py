@@ -25,7 +25,7 @@ import torch
 import yaml
 
 from bayes_sim_ig_tpu_torch.distributions import Uniform, to_device_distr
-from bayes_sim_ig_tpu_torch.ops import integrate_kernel
+from bayes_sim_ig_tpu_torch.ops.launch import launch_counts
 from bayes_sim_ig_tpu_torch.physics import (
     ArticulatedModel, LinkSpec, clamp_limits, integrate, integrate_and_clamp,
 )
@@ -94,14 +94,14 @@ def test_the_tables_cover_every_column_once(name):
 def test_cpu_and_single_env_calls_are_the_torch_chain(name):
     model = _model(name)
     q, v, qdd = _states(model, 9)
-    before = dict(integrate_kernel.LAUNCHES)
+    before = launch_counts()
     for got, want in ((integrate_and_clamp(model, q, v, qdd, DT),
                        _chain(model, q, v, qdd)),
                       (integrate_and_clamp(model, q[3], v[3], qdd[3], DT),
                        _chain(model, q[3], v[3], qdd[3]))):
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, rtol=0, atol=0)
-    assert integrate_kernel.LAUNCHES == before
+    assert launch_counts() == before
 
 
 # ------------------------------------------------------------------ #
@@ -129,16 +129,16 @@ def test_the_kernel_is_the_torch_chain_on_the_card(name):
     _card_or_skip()
     model = _model(name)
     q, v, qdd = _states(model, 1001, seed=1, device="cuda")
-    before = integrate_kernel.LAUNCHES["integrate_clamp"]
+    before = launch_counts()["integrate_clamp"]
     got = integrate_and_clamp(model, q, v, qdd, DT)
     want = _chain(model, q, v, qdd)
-    assert integrate_kernel.LAUNCHES["integrate_clamp"] == before + 1
+    assert launch_counts()["integrate_clamp"] == before + 1
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.is_contiguous()
         torch.testing.assert_close(g, w, rtol=0, atol=0)
     # A single env is a batch of one: one launch, the batch's row.
     one = integrate_and_clamp(model, q[7], v[7], qdd[7], DT)
-    assert integrate_kernel.LAUNCHES["integrate_clamp"] == before + 2
+    assert launch_counts()["integrate_clamp"] == before + 2
     for g, w in zip(one, want):
         assert g.shape == w.shape[1:]
         torch.testing.assert_close(g, w[7], rtol=0, atol=0)

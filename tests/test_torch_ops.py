@@ -15,6 +15,7 @@ from bayes_sim_ig_tpu.ops.rff_kernel import (
     rff_features_pallas, rff_features_reference as jax_reference,
 )
 from bayes_sim_ig_tpu_torch.ops import bounds, rff_kernel
+from bayes_sim_ig_tpu_torch.ops.launch import launch_counts
 
 torch.set_num_threads(1)
 
@@ -95,13 +96,13 @@ def test_large_phases_within_float64_bound(b, d, m):
 
 def test_cpu_tensors_take_the_plain_version_without_launching():
     x, coeff = _inputs(8, 5, 6)
-    before = rff_kernel.LAUNCHES
+    before = launch_counts()
     got = rff_kernel.rff_features(torch.from_numpy(x),
                                   torch.from_numpy(coeff), 0.5)
     want = rff_kernel.rff_features_reference(torch.from_numpy(x),
                                              torch.from_numpy(coeff), 0.5)
     assert torch.equal(got, want)
-    assert rff_kernel.LAUNCHES == before
+    assert launch_counts() == before
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
@@ -143,11 +144,11 @@ def test_kernel_matches_plain_on_card(b, d, m):
     _needs_card()
     x, coeff = _inputs(b, d, m)
     xc, cc = torch.from_numpy(x).cuda(), torch.from_numpy(coeff).cuda()
-    before = rff_kernel.LAUNCHES
+    before = launch_counts()["rff_features"]
     got = rff_kernel.rff_features(xc, cc, 0.1)
     want = rff_kernel.rff_features_reference(xc, cc, 0.1)
     torch.cuda.synchronize()
-    assert rff_kernel.LAUNCHES == before + 1
+    assert launch_counts()["rff_features"] == before + 1
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
 
 

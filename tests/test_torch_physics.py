@@ -298,13 +298,13 @@ def test_free_fall():
 
 
 def test_frozen_vs_fresh_single_step(monkeypatch):
-    """The frozen-mass substep scheme (factor from the first substep
-    reused by the second; Ant's default, forced either way by
-    BSIM_FROZEN_MASS) perturbs one physics step by O(h^2 |qd| dM): well
-    under 1% of the state scale on Ant."""
+    """Ant's frozen-mass substep scheme (factor from the first substep
+    reused by the second) perturbs one physics step by O(h^2 |qd| dM)
+    against a fresh factor on each substep: well under 1% of the state
+    scale."""
     import os
     import yaml
-    from bayes_sim_ig_tpu_torch.sim import make_env
+    from bayes_sim_ig_tpu_torch.sim import ant, make_env
     with open(os.path.join(os.path.dirname(__file__), "..",
                            "bayes_sim_ig_tpu_torch", "cfg", "ant.yaml")) as f:
         cfg = yaml.safe_load(f)
@@ -316,11 +316,13 @@ def test_frozen_vs_fresh_single_step(monkeypatch):
     params = lows + torch.rand((8, spec.dim), generator=gen) * (highs - lows)
     state = task.init_state(gen, params)
     act = torch.linspace(-0.5, 0.5, task.act_dim)[None].repeat(8, 1)
-    monkeypatch.setenv("BSIM_FROZEN_MASS", "0")
+    frozen = task.physics_step(state, act, params, gen)
+    fd = ant.forward_dynamics
+    # Fresh: every substep's call drops the carried factor.
+    monkeypatch.setattr(ant, "forward_dynamics",
+                        lambda *a, factor=None, **k: fd(*a, **k))
     fresh = task.physics_step(state, act, params, gen)
     fresh2 = task.physics_step(state, act, params, gen)
-    monkeypatch.setenv("BSIM_FROZEN_MASS", "1")
-    frozen = task.physics_step(state, act, params, gen)
     assert torch.equal(fresh.q, fresh2.q)
     scale = float(fresh.q.abs().max())
     dev = float((frozen.q - fresh.q).abs().max())

@@ -4,7 +4,9 @@
   (a) one Anymal step (its 18-dof mass matrix fills 0.684 of the lower
       triangle: the dense route) calls two SPD factors and two
       substitutes, one per substep, and one Humanoid step (the tree
-      route) two tree factors and two substitutes;
+      route) two tree factors and two substitutes; one Ant step (dense,
+      the frozen-mass scheme: the first substep's factor serves the
+      second) one factor and two substitutes;
   (b) ``launch_counts`` stays the kernels' launches, and ``replay_counts``
       adds the counts registered with ``count_at_replay``;
   (c) on a card (``cuda`` marker), a step graph's replays add what its
@@ -63,13 +65,15 @@ def _step_counts(env, distr):
 
 
 @pytest.mark.parametrize("name, stem, route", [
-    ("Anymal", "anymal", "dense"), ("Humanoid", "humanoid", "tree")])
+    ("Anymal", "anymal", "dense"), ("Humanoid", "humanoid", "tree"),
+    ("Ant", "ant", "dense")])
 def test_one_step_counts_its_solves_by_route(name, stem, route):
     env, distr = _env(name, stem)
     assert dynamics._uses_tree_solve(env.task.model) == (route == "tree")
+    factors = 1 if name == "Ant" else 2  # Ant carries its factor
     assert _step_counts(env, distr) == {
-        f"physics.{route}_factor": 2, f"physics.{route}_substitute": 2,
-        "sim.env_steps": 1}
+        f"physics.{route}_factor": factors,
+        f"physics.{route}_substitute": 2, "sim.env_steps": 1}
 
 
 def test_launch_counts_are_the_kernels_and_replay_counts_add_the_work():

@@ -22,6 +22,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from bayes_sim_ig_tpu.ops import spd_kernel as jspd
 from bayes_sim_ig_tpu_torch.ops import bounds, spd_kernel
+from bayes_sim_ig_tpu_torch.ops.launch import launch_counts
 
 torch.set_num_threads(1)
 
@@ -130,7 +131,7 @@ def test_autograd_backward_matches_pallas_vjp():
 
 def test_cpu_factor_uses_the_plain_version_and_agrees_with_jax():
     At, bt = _spd(14, 8, seed=8)
-    before = dict(spd_kernel.LAUNCHES)
+    before = launch_counts()
     kind, Lt = spd_kernel.spd_factor_lanes(_t(At))
     assert kind == "chol_lanes"
     assert torch.equal(Lt, spd_kernel._chol_lanes_factor(_t(At)))
@@ -143,7 +144,7 @@ def test_cpu_factor_uses_the_plain_version_and_agrees_with_jax():
         spd_kernel.spd_substitute_lanes((kind, Lt), _t(bt)).numpy(),
         np.asarray(jspd.spd_substitute_lanes(fac_j, jnp.asarray(bt))),
         **LOOSE)
-    assert spd_kernel.LAUNCHES == before
+    assert launch_counts() == before
 
 
 def test_standard_layout_solve():
@@ -266,12 +267,13 @@ def test_kernels_match_plain_on_card(n, N, k):
     At, bt = _spd(n, N, seed=n, k=k)
     At[:, :, 0] = -np.eye(n, dtype=np.float32)  # a NaN pivot in env 0
     A_c, b_c = _t(At).cuda(), _t(bt).cuda()
-    before = dict(spd_kernel.LAUNCHES)
+    before = launch_counts()
     Lt = spd_kernel.spd_factor_lanes(A_c)[1]
     x = spd_kernel.spd_substitute_lanes(("chol_lanes", Lt), b_c)
     torch.cuda.synchronize()
-    assert spd_kernel.LAUNCHES["factor"] == before["factor"] + 1
-    assert spd_kernel.LAUNCHES["substitute"] == before["substitute"] + 1
+    after = launch_counts()
+    for kind in ("spd_factor_lanes", "spd_substitute_lanes"):
+        assert after[kind] == before[kind] + 1
     torch.testing.assert_close(Lt, spd_kernel._chol_lanes_factor(A_c),
                                equal_nan=True, **LOOSE)
     torch.testing.assert_close(

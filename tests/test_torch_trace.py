@@ -292,20 +292,20 @@ def test_traced_steps_make_no_host_sync_and_no_host_copy(tmp_path):
 # (d) a capture's launches, added in place at each replay
 # ------------------------------------------------------------------ #
 def test_launch_increments_add_in_place():
-    from bayes_sim_ig_tpu_torch.ops import rff_kernel, spd_kernel, tree_solve
-    from bayes_sim_ig_tpu_torch.ops.launch import (launch_counts,
+    from bayes_sim_ig_tpu_torch.ops.launch import (COUNTS, launch_counts,
                                                    launch_increments,
                                                    set_launch_counts)
     start = launch_counts()
     try:
         before = launch_counts()
-        rff_kernel.LAUNCHES += 2
-        spd_kernel.LAUNCHES["factor"] += 1
-        tree_solve.LAUNCHES["upsolve"] += 3
+        COUNTS["rff_features"] += 2
+        COUNTS["spd_factor_lanes"] += 1
+        COUNTS["tree_ltdl_upsolve"] += 3
         after = launch_counts()
         incs = launch_increments(before, after)
         assert sorted((k, n) for _, k, n in incs) == [
-            ("LAUNCHES", 2), ("factor", 1), ("upsolve", 3)]
+            ("rff_features", 2), ("spd_factor_lanes", 1),
+            ("tree_ltdl_upsolve", 3)]
         set_launch_counts(before)
         for _ in range(2):  # two replays
             for counts, key, n in incs:
@@ -313,7 +313,7 @@ def test_launch_increments_add_in_place():
         want = {k: before[k] + 2 * (after[k] - before[k]) for k in before}
         assert launch_counts() == want
         assert list(launch_counts()) == list(start)  # the names, in order
-        assert rff_kernel.LAUNCHES == before["rff_features"] + 4
+        assert COUNTS["rff_features"] == before["rff_features"] + 4
     finally:
         set_launch_counts(start)
 

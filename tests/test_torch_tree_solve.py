@@ -28,6 +28,7 @@ from bayes_sim_ig_tpu.sim.ball_balance import build_bbot_model
 from bayes_sim_ig_tpu.sim.humanoid import build_humanoid_model
 from bayes_sim_ig_tpu_torch.ops import bounds
 from bayes_sim_ig_tpu_torch.ops import tree_solve as tts
+from bayes_sim_ig_tpu_torch.ops.launch import launch_counts
 
 torch.set_num_threads(1)
 
@@ -452,14 +453,14 @@ def test_tensor_form_equals_dict_form(tree, left):
 def test_cpu_entry_points_run_the_plain_version():
     chains = TREES["humanoid"]
     Mp, b, _ = _system(chains, seed=9)
-    before = dict(tts.LAUNCHES)
+    before = launch_counts()
     fac = tts.tree_factor(chains, torch.from_numpy(Mp), left_looking=True)
     want = tts.ltdl_factor_plain(chains, torch.from_numpy(Mp), True)
     assert torch.equal(fac[0], want[0]) and torch.equal(fac[1], want[1])
     x = tts.tree_substitute(chains, fac, torch.from_numpy(b))
     assert torch.equal(x, tts.ltdl_substitute_plain(chains, fac,
                                                     torch.from_numpy(b)))
-    assert tts.LAUNCHES == before
+    assert launch_counts() == before
 
 
 @pytest.mark.parametrize("fn", ["ltdl_factor_cuda", "ltdl_substitute_cuda"])
@@ -494,12 +495,13 @@ def test_kernels_match_plain_on_card(tree, n, k):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     chains, Mp, b = _card_system(tree, n, k)
-    before = dict(tts.LAUNCHES)
+    before = launch_counts()
     H, D = tts.tree_factor(chains, Mp)
     x = tts.tree_substitute(chains, (H, D), b)
     torch.cuda.synchronize()
-    assert tts.LAUNCHES["factor"] == before["factor"] + 1
-    assert tts.LAUNCHES["substitute"] == before["substitute"] + 1
+    after = launch_counts()
+    for kind in ("tree_ltdl_factor", "tree_ltdl_substitute"):
+        assert after[kind] == before[kind] + 1
     Hp, Dp = tts.ltdl_factor_plain(chains, Mp)
     torch.testing.assert_close(H, Hp, equal_nan=True, **TOL)
     torch.testing.assert_close(D, Dp, equal_nan=True, **TOL)

@@ -19,7 +19,7 @@ import jax.numpy as jnp
 from bayes_sim_ig_tpu_torch.distributions import (
     MoG, Uniform, to_device_distr,
 )
-from bayes_sim_ig_tpu_torch.ops import spd_kernel, tree_solve
+from bayes_sim_ig_tpu_torch.ops.launch import launch_counts
 from bayes_sim_ig_tpu_torch.sim import make_env
 
 from .torch_host_traffic import NoHostTraffic  # noqa: F401
@@ -164,6 +164,28 @@ def render_matches_jax(task_name, stem, jax_task):
         frame, jax_task.render_obs_frame(obs[0].numpy()))
 
 
+def fresh_factor_on_every_substep(module, task, state, actions, params,
+                                  monkeypatch):
+    """One ``task.physics_step`` factors the mass matrix on each of its
+    substeps (``physics/dynamics.py::STATS``), and carrying the first
+    substep's factor into the next (the frozen-mass scheme, patched into
+    ``module.forward_dynamics`` for one step) changes the step."""
+    from bayes_sim_ig_tpu_torch.physics import dynamics
+    before = dict(dynamics.STATS)
+    fresh = task.physics_step(state, actions, params, None)
+    assert sum(dynamics.STATS[k] - before[k] for k in before
+               if k.endswith("_factor")) == task.substeps
+    fd, carried = module.forward_dynamics, [None]
+
+    def frozen(*args, **kwargs):
+        qdd, kin, carried[0] = fd(*args, factor=carried[0],
+                                  return_factor=True, **kwargs)
+        return qdd, kin
+    monkeypatch.setattr(module, "forward_dynamics", frozen)
+    assert not torch.equal(task.physics_step(state, actions, params,
+                                             None).v, fresh.v)
+
+
 def tiny_adr_run(task_name, stem, tmp_path, monkeypatch, env_edits,
                  num_envs=8, bayessim_edits=None):
     """bayes_sim_main.main on a tiny config (``num_envs`` envs, 16 training
@@ -181,12 +203,12 @@ def tiny_adr_run(task_name, stem, tmp_path, monkeypatch, env_edits,
     cfg_path = tmp_path / f"{stem}.yaml"
     with open(cfg_path, "w") as f:
         yaml.safe_dump(cfg, f, sort_keys=False)
-    before = (dict(tree_solve.LAUNCHES), dict(spd_kernel.LAUNCHES))
+    before = launch_counts()
     out = bayes_sim_main.main([
         "--task", task_name, "--cfg_env", str(cfg_path), "--logdir",
         str(tmp_path / "logs"), "--max_iterations", "1", "--rl_device",
         "cpu"])
-    assert (tree_solve.LAUNCHES, spd_kernel.LAUNCHES) == before
+    assert launch_counts() == before
     assert type(out["bsim"].model).__name__ == "MDNN"
     assert len(out["iter_secs"]) == 1
     with open(os.path.join(out["logdir"], "checkpoints",
