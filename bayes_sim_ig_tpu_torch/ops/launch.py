@@ -70,6 +70,9 @@ LIBRARIES: Dict[str, Library] = {
     "integrate": Library(("integrate.cu",), {
         "integrate_clamp": Entry("integrate_clamp_f32",
                                  (*[_P] * 7, *[_I] * 5, *[_F] * 3, _P))}),
+    "forward_kinematics": Library(("forward_kinematics.cu",), {
+        "forward_kinematics": Entry("forward_kinematics_f32",
+                                    (*[_P] * 6, *[_I] * 9, _P))}),
 }
 
 _LIBRARY_OF = {name: lib for lib, spec in LIBRARIES.items()
@@ -167,7 +170,7 @@ def _counters() -> Dict[str, Tuple[dict, str]]:
 def launch_counts() -> Dict[str, int]:
     """Every hand-written kernel's launches by this process, by entry
     name, in ``LIBRARIES`` order: ``rff_features``, ``spd_<kind>_lanes``,
-    ``tree_ltdl_<kind>``, ``integrate_clamp``."""
+    ``tree_ltdl_<kind>``, ``integrate_clamp``, ``forward_kinematics``."""
     return dict(COUNTS)
 
 

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from .model import ArticulatedModel, DynParams
+from ..ops.fk_kernel import forward_kinematics_cuda
 from ..ops.integrate_kernel import integrate_clamp_cuda
 from ..ops.launch import count_at_replay, on_cpu
 from ..ops.spd_kernel import spd_factor_lanes, spd_substitute_lanes
@@ -260,6 +261,36 @@ def _structure(model: ArticulatedModel, device) -> dict:
     s.update(integ_table=torch.as_tensor(
         np.asarray(offsets, np.int32).reshape(-1, 2), device=device),
         integ_limits=torch.stack([s["j1_maxv"], s["j1_lo"], s["j1_hi"]], 1))
+    # The FK kernel's tables (csrc/forward_kinematics.cu): int32 rows by
+    # link (parent, the joint whose chain ends there, its free joint, its
+    # ancestor dofs' bit mask), by 1-dof joint (q and v columns, chain
+    # position and predecessor, the parent link), by dof (6 f + k of a free
+    # joint's dofs) and by free joint (link, q column); float rows by link
+    # and by joint, copied from the chain's own tables.
+    link_j1 = np.full(nb, -1, np.int64)
+    link_j1[model.j1_links[last]] = last
+    link_free = np.full(nb, -1, np.int64)
+    dof_free = np.full(nv, -1, np.int64)
+    for f_i, (i, qi, vi) in enumerate(free):
+        link_free[i] = f_i
+        dof_free[vi:vi + 6] = 6 * f_i + np.arange(6)
+    anc_mask = (model.anc_dof != 0).astype(np.uint64) @ (
+        np.uint64(1) << np.arange(nv, dtype=np.uint64))
+    links = np.stack([model.parent_pad, link_j1, link_free,
+                      anc_mask.astype(np.uint32).view(np.int32)], 1)
+    joints = np.stack([model.j1_q, model.j1_v, model.j1_chain_pos,
+                       np.maximum(model.j1_prev, 0),
+                       np.append(model.parent_pad, nb)[model.j1_links]], 1)
+    frees = np.asarray([(i, qi) for (i, qi, vi) in free], np.int64)
+    s["fk_itab"] = torch.as_tensor(np.concatenate(
+        [links.ravel(), joints.ravel(), dof_free, frees.ravel()])
+        .astype(np.int32), device=device)
+    s["fk_ftab"] = torch.cat([
+        torch.cat([s["fixed_rot_T"].reshape(nb, 9), s["fixed_pos"]],
+                  1).ravel(),
+        torch.cat([s["j1_E"].reshape(nj, 9), s["j1_K"].reshape(nj, 9),
+                   s["j1_aaT"].reshape(nj, 9), s["j1_t"], s["j1_ax_par"],
+                   s["j1_axis"], s["j1_rev"][:, None]], 1).ravel()])
     cache[device] = s
     return s
 
@@ -267,13 +298,32 @@ def _structure(model: ArticulatedModel, device) -> dict:
 def forward_kinematics(model: ArticulatedModel, q, v_dof,
                        params: DynParams) -> Kinematics:
     """Per-link world poses, world-Plücker joint subspaces and link
-    velocities, by pointer jumping; env-last throughout.
+    velocities; env-last throughout.
 
     Link translations scale with ``params.scale`` (uniform geometry scale —
     the 'scale' DR operation changes limb lengths, not just collision
-    radii)."""
+    radii). On the card it is one launch of ``csrc/forward_kinematics.cu``,
+    equal to ``kinematics_chain`` on a batch there bit for bit (a single
+    env gives its row of a batch); CPU tensors run ``kinematics_chain``,
+    its plain version."""
+    if on_cpu(q, v_dof):
+        return kinematics_chain(model, q, v_dof, params)
     if q.ndim == 1:
         return _squeeze_last(forward_kinematics(
+            model, q[None], v_dof[None], _promote(params)))
+    st = _structure(model, q.device)
+    return Kinematics(*forward_kinematics_cuda(
+        q, v_dof, params.scale.expand(q.shape[0]), st["fk_itab"],
+        st["fk_ftab"], model.nb, model.j1_links.size, len(model.free_list),
+        len(st["jump_gathers"]), model.j1_chain_maxpos))
+
+
+def kinematics_chain(model: ArticulatedModel, q, v_dof,
+                     params: DynParams) -> Kinematics:
+    """``forward_kinematics`` in plain torch, by pointer jumping: the
+    kernel's plain version, on any device."""
+    if q.ndim == 1:
+        return _squeeze_last(kinematics_chain(
             model, q[None], v_dof[None], _promote(params)))
     n = q.shape[0]
     nb, nv = model.nb, model.nv

@@ -68,6 +68,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
        for bit; at the benchmark cells' widths (Anymal 4000, Humanoid 4096,
        ShadowHand 10000) the times of both alone and in a CUDA graph of 20
        calls, the chain's launches a call and the bound;
+     - the kinematics kernel (csrc/forward_kinematics.cu: a substep's
+       forward kinematics in one launch) on the same models and widths,
+       at random states with the geometry scale DR'd, against the torch
+       chain it replaces on the card (dynamics.kinematics_chain), every
+       field bit for bit, and a single env against its row of the batch;
+       at the benchmark cells' widths the same times and bound;
   4. the step graphs (utils/step_graph.py): each of the ten tasks at the
      full width of its ADR phase (below; Cartpole 512, Pendulum 100
      envs) runs 20 collection steps (its config's collection policy, the
@@ -104,8 +110,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      trainTrajLen 50, summary_corrdiff, MDNN [128, 128] x 10 components,
      PPO [256, 128, 64] with nsteps 16) for 2 ADR iterations through
      ``bayes_sim_main.main`` (ADR_PHASES); checks that the SPD factor and
-     substitute kernels and the integration kernel were launched and no
-     other kernel, the posteriors are finite with 17 dims and every model and env tensor is on the
+     substitute kernels and the integration and kinematics kernels were
+     launched and no other kernel, the posteriors are finite with 17 dims and every model and env tensor is on the
      card; prints the seconds of each iteration and of its phases;
   5. the ADR loop on Cartpole + MDRFF at full width (512 envs,
      summary_corrdiff features d = 302, 200 RFF features, 10 components
@@ -119,8 +125,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   6. the ADR loop on Humanoid at full width (4096 envs, 37 params,
      trainTrajLen 50, summary_corrdiff, MDNN [128, 128] x 10 components,
      PPO [400, 200, 100] elu with nsteps 32) for 2 ADR iterations
-     (ADR_PHASES); checks that both tree kernels and the integration
-     kernel were launched and no other kernel, and the same as phase 4;
+     (ADR_PHASES); checks that both tree kernels and the integration and
+     kinematics kernels were launched and no other kernel, and the same as phase 4;
   7. the README quick start, Pendulum + MDNN with summary_start at full
      width (100 envs), for 2 ADR iterations; it launches no kernel;
   8. the ADR loop on each of Anymal (4000 envs, 13 params), Quadcopter
@@ -129,12 +135,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      each): checks the SPD
      factor and substitute kernels and no tree kernel on the four dense
      tasks, the tree kernels and no SPD kernel on BallBalance, the
-     integration kernel on all five, and the same as phase 4;
+     integration and kinematics kernels on all five, and the same as phase 4;
   9. the ADR loop on ShadowHand at full width (1024 envs, 32 params,
      89-dim obs, trainTrajLen 30, MDNN [128, 128] x 10, PPO [512, 256,
      128] with nsteps 8) for 2 ADR iterations (ADR_PHASES): checks the
      tree factor, substitute, upsolve and downsolve kernels, the
-     integration kernel and no SPD kernel, and the same as phase 4; then the same for 1 ADR iteration
+     integration and kinematics kernels and no SPD kernel, and the same
+     as phase 4; then the same for 1 ADR iteration
      at the JAX package's own scale
      (HAND_SCALE_PHASES, trainTrajs cut to 1000, the evaluation's 600-step
      episodes uncut): 9a. shadow_hand_more.yaml at 10000 envs (111
@@ -155,7 +162,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
      no rollout or update program after its first PPO run and
      returns 3 finite surrogate-real means; the grasp arm replays its
      fits and writes finite posteriors; both launch the tree kernels,
-     half-solves and integration kernel only and free every graph; allocated memory (without
+     half-solves, integration and kinematics kernels only and free
+     every graph; allocated memory (without
      cuBLAS's per-stream workspaces) comes back within 64 MiB;
      experiments/adr_pooled_analysis.py reads the pair;
      then 20 steps of shadow_hand_grasp_full.yaml (2048 envs, the 211-dim
@@ -535,9 +543,10 @@ def _spd_inputs(n, N, k=None, seed=0):
 
 
 
-# The integration kernel (csrc/integrate.cu) at each articulated task's ADR
-# width and at the benchmark cells' (ShadowHand 10,000); the timed ones are
-# the cells' tasks. (task, config stem, numEnvs).
+# The integration and kinematics kernels (csrc/integrate.cu,
+# csrc/forward_kinematics.cu) at each articulated task's ADR width and at
+# the benchmark cells' (ShadowHand 10,000); the timed ones are the cells'
+# tasks. (task, config stem, numEnvs).
 INTEG_SHAPES = [("Ant", "ant", 1024), ("Humanoid", "humanoid", 4096),
                 ("Anymal", "anymal", 4000),
                 ("Quadcopter", "quadcopter", 8192),
@@ -567,23 +576,63 @@ def _graph_ms(fn, calls=20, n=50):
     return ms
 
 
-def phase_integrate_kernel():
-    """The integration kernel against the torch chain it replaces
-    (dynamics.integrate then clamp_limits, on the card) at INTEG_SHAPES,
-    bit for bit; at INTEG_TIMED the times of both alone and inside a CUDA
-    graph of 20 calls, and the bound."""
-    from bayes_sim_ig_tpu_torch.ops import bounds
-    from bayes_sim_ig_tpu_torch.ops import integrate_kernel as ik
-    from bayes_sim_ig_tpu_torch.physics import dynamics
+def _substep_kernel_phase(name, case):
+    """One substep kernel against the torch chain it replaces (on the card)
+    at INTEG_SHAPES, every output bit for bit; at INTEG_TIMED the times of
+    both alone and inside a CUDA graph of 20 calls, and the bound.
+    ``case(model, N)`` gives the kernel's and the chain's calls, a check of
+    the chain's outputs beyond the kernel's (or None), the bound and the
+    model's sizes to print."""
     from bayes_sim_ig_tpu_torch.sim import make_env
     from bayes_sim_ig_tpu_torch.utils.args import load_config
-    from tests.integrate_states import clamp_driving_states
     worst, timed = 0.0, {}
     for task, stem, N in INTEG_SHAPES:
         cfg = load_config(os.path.join(HERE, "bayes_sim_ig_tpu_torch", "cfg",
                                        f"{stem}.yaml"))
         cfg["env"]["numEnvs"] = 1
         model = make_env(task, cfg, seed=0, device="cpu").task.model
+        kernel, plain, also, bound, sizes = case(model, N)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        ok = all(torch.equal(g, w) for g, w in zip(got, want)) and (
+            also is None or also(want))
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        worst = max(worst, err)
+        shape = f"({task} {stem}: {sizes}, N {N})"
+        print(f"[kernel] {name} {shape}: max_abs_err {err:.3e} "
+              f"{'ok, bit for bit' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            raise AssertionError(f"{name} disagrees with the torch chain at "
+                                 f"{shape}")
+        if (task, stem, N) in INTEG_TIMED:
+            t = _times(kernel, plain)
+            t["graph_ms"], t["plain_graph_ms"] = (_graph_ms(kernel),
+                                                  _graph_ms(plain))
+            t["plain_launches"] = _device_profile(plain, n=5)[1]
+            t["bound"] = bound
+            timed[(task, stem, N)] = t
+            print(f"[kernel] {name} {shape}: {_time_line(t)} | in a graph "
+                  f"of 20 calls: kernel {t['graph_ms']:.4f} ms, plain "
+                  f"{t['plain_graph_ms']:.4f} ms a call "
+                  f"({t['plain_launches']} launches) | "
+                  f"{_bound_line(t['bound'])}", flush=True)
+    return {"max_abs_err": worst, **timed[INTEG_MAIN],
+            "times": {f"{task} N={N}": dict(
+                _time_entry(t), graph_ms=t["graph_ms"],
+                plain_graph_ms=t["plain_graph_ms"],
+                plain_launches=t["plain_launches"])
+                for (task, _, N), t in timed.items()}}
+
+
+def phase_integrate_kernel():
+    """The integration kernel against dynamics.integrate then clamp_limits,
+    at states that drive every clamp (``_substep_kernel_phase``)."""
+    from bayes_sim_ig_tpu_torch.ops import bounds
+    from bayes_sim_ig_tpu_torch.ops import integrate_kernel as ik
+    from bayes_sim_ig_tpu_torch.physics import dynamics
+    from tests.integrate_states import clamp_driving_states
+
+    def case(model, N):
         q, v, qdd = clamp_driving_states(model, N, device="cuda")
         st = dynamics._structure(model, "cuda")
         n_free = len(model.free_list)
@@ -598,37 +647,46 @@ def phase_integrate_kernel():
         def plain():
             return dynamics.clamp_limits(model, *dynamics.integrate(
                 model, q, v, qdd, INTEG_DT))
-        got, want = kernel(), plain()
-        torch.cuda.synchronize()
-        ok = all(torch.equal(g, w) for g, w in zip(got, want))
-        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        worst = max(worst, err)
-        shape = (f"({task} {stem}: nq {model.nq}, nv {model.nv}, "
-                 f"{n_free} free, {model.j1_q.size} 1-dof, N {N})")
-        print(f"[kernel] integrate_clamp {shape}: max_abs_err {err:.3e} "
-              f"{'ok, bit for bit' if ok else 'MISMATCH'}", flush=True)
-        if not ok:
-            raise AssertionError(f"integrate_clamp disagrees with the torch "
-                                 f"chain at {shape}")
-        if (task, stem, N) in INTEG_TIMED:
-            t = _times(kernel, plain)
-            t["graph_ms"], t["plain_graph_ms"] = (_graph_ms(kernel),
-                                                  _graph_ms(plain))
-            t["plain_launches"] = _device_profile(plain, n=5)[1]
-            t["bound"] = bounds.integrate_clamp(model.nq, model.nv, N, n_free,
-                                                model.j1_q.size)
-            timed[(task, stem, N)] = t
-            print(f"[kernel] integrate_clamp {shape}: {_time_line(t)} | in "
-                  f"a graph of 20 calls: kernel {t['graph_ms']:.4f} ms, "
-                  f"plain {t['plain_graph_ms']:.4f} ms a call "
-                  f"({t['plain_launches']} launches) | "
-                  f"{_bound_line(t['bound'])}", flush=True)
-    return {"max_abs_err": worst, **timed[INTEG_MAIN],
-            "times": {f"{task} N={N}": dict(
-                _time_entry(t), graph_ms=t["graph_ms"],
-                plain_graph_ms=t["plain_graph_ms"],
-                plain_launches=t["plain_launches"])
-                for (task, _, N), t in timed.items()}}
+        bound = bounds.integrate_clamp(model.nq, model.nv, N, n_free,
+                                       model.j1_q.size)
+        return (kernel, plain, None, bound,
+                f"nq {model.nq}, nv {model.nv}, {n_free} free, "
+                f"{model.j1_q.size} 1-dof")
+    return _substep_kernel_phase("integrate_clamp", case)
+
+
+def phase_fk_kernel():
+    """The kinematics kernel against dynamics.kinematics_chain, at random
+    states with the geometry scale DR'd, and a single env against its row
+    of the batch (``_substep_kernel_phase``)."""
+    from bayes_sim_ig_tpu_torch.ops import bounds
+    from bayes_sim_ig_tpu_torch.physics import DynParams, dynamics
+    from tests.integrate_states import kinematics_states
+
+    def case(model, N):
+        q, v, scale = kinematics_states(model, N, seed=N, device="cuda")
+        params = DynParams.defaults(model, device="cuda").rows(N,
+                                                               scale=scale)
+        one = DynParams.defaults(model, device="cuda")._replace(
+            scale=scale[N // 2])
+
+        def kernel():
+            return dynamics.forward_kinematics(model, q, v, params)
+
+        def plain():
+            return dynamics.kinematics_chain(model, q, v, params)
+
+        def single_is_its_row(want):
+            got = dynamics.forward_kinematics(model, q[N // 2], v[N // 2],
+                                              one)
+            return all(torch.equal(g, w[..., N // 2])
+                       for g, w in zip(got, want))
+        bound = bounds.forward_kinematics(model.nb, model.nv, model.nq, N)
+        return (kernel, plain, single_is_its_row, bound,
+                f"nb {model.nb}, nv {model.nv}, {model.j1_q.size} 1-dof, "
+                f"{len(model.free_list)} free")
+    return _substep_kernel_phase("forward_kinematics", case)
+
 
 def _check(name, got, want, shape):
     torch.cuda.synchronize()
@@ -2254,26 +2312,27 @@ def phase_train_graphs(smi):
 _SPD = ("spd_factor_lanes", "spd_substitute_lanes")
 _TREE = ("tree_ltdl_factor", "tree_ltdl_substitute")
 _HALF = ("tree_ltdl_upsolve", "tree_ltdl_downsolve")
-_INTEG = ("integrate_clamp",)
+# The kernels of every articulated substep.
+_SUBSTEP = ("integrate_clamp", "forward_kinematics")
 ADR_PHASES = [
     ("Ant", "ant", 1024, 17, [256, 128, 64], 16, 50,
-     "summary_corrdiff", _SPD + _INTEG, 1000, {}, 2),
+     "summary_corrdiff", _SPD + _SUBSTEP, 1000, {}, 2),
     ("Humanoid", "humanoid", 4096, 37, [400, 200, 100], 32, 50,
-     "summary_corrdiff", _TREE + _INTEG, 1000, {}, 2),
+     "summary_corrdiff", _TREE + _SUBSTEP, 1000, {}, 2),
     ("Anymal", "anymal", 4000, 13, [256, 128, 64], 24, 50,
-     "summary_corrdiff", _SPD + _INTEG, 2000,
+     "summary_corrdiff", _SPD + _SUBSTEP, 2000,
      {"episodeLength_s": 1000 / 60}, 1),
     ("Quadcopter", "quadcopter", 8192, 9, [256, 128, 64], 16, 10,
-     "summary_start", _SPD + _INTEG, 2000, {}, 1),
+     "summary_start", _SPD + _SUBSTEP, 2000, {}, 1),
     ("Ingenuity", "ingenuity", 4096, 9, [256, 128, 64], 16, 10,
-     "summary_start", _SPD + _INTEG, 2000,
+     "summary_start", _SPD + _SUBSTEP, 2000,
      {"maxEpisodeLength": 1000}, 1),
     ("BallBalance", "ball_balance", 128, 7, [128, 64, 32], 16, 20,
-     "summary_corrdiff", _TREE + _INTEG, 512, {}, 1),
+     "summary_corrdiff", _TREE + _SUBSTEP, 512, {}, 1),
     ("FrankaCabinet", "franka_cabinet", 2048, 19, [256, 128, 64], 16, 30,
-     "summary_corrdiff", _SPD + _INTEG, 2000, {}, 1),
+     "summary_corrdiff", _SPD + _SUBSTEP, 2000, {}, 1),
     ("ShadowHand", "shadow_hand", 1024, 32, [512, 256, 128], 8, 30,
-     "summary_corrdiff", _TREE + _HALF + _INTEG, 1000, {}, 2),
+     "summary_corrdiff", _TREE + _HALF + _SUBSTEP, 1000, {}, 2),
 ]
 
 # Phases 9a and 9b: ShadowHand at the JAX package's own scale, as
@@ -2286,10 +2345,10 @@ ADR_PHASES = [
 # evaluation's 600-step episodes uncut.
 HAND_SCALE_PHASES = [
     (("ShadowHand", "shadow_hand_more", 10000, 111, [512, 256, 128], 8, 50,
-      "summary_corrdiff", _TREE + _HALF + _INTEG, 1000, {}, 1), 89,
+      "summary_corrdiff", _TREE + _HALF + _SUBSTEP, 1000, {}, 1), 89,
      "policy_rl_randomized"),
     (("ShadowHand", "shadow_hand_grasp", 2048, 32, [512, 256, 128], 8, 30,
-      "summary_corrdiff", _TREE + _HALF + _INTEG, 1000, {}, 1), 107,
+      "summary_corrdiff", _TREE + _HALF + _SUBSTEP, 1000, {}, 1), 107,
      "policy_grasp"),
 ]
 
@@ -2427,7 +2486,7 @@ def phase_adr_pair(seed=7, iters=3):
                 raise AssertionError(f"{arm}: graphs kept: "
                                      f"{rec['live_graphs']}")
             for entry, count in rec["launches"].items():
-                if (count > 0) != (entry in _TREE + _HALF + _INTEG):
+                if (count > 0) != (entry in _TREE + _HALF + _SUBSTEP):
                     raise AssertionError(f"{arm}: {entry} launched {count} "
                                          f"times")
             posteriors = glob.glob(os.path.join(out["logdir"], "**",
@@ -2755,6 +2814,7 @@ def main():
     tree = phase_tree_kernel()
     half = phase_half_solves()
     integ = phase_integrate_kernel()
+    fk = phase_fk_kernel()
     phase_step_graphs()
     phase_train_graphs(smi)
     ant, humanoid, *rest = ADR_PHASES
@@ -2814,6 +2874,12 @@ def main():
         "none: physics/dynamics.py::integrate + clamp_limits (plain torch)",
         by_task("integrate_clamp"), integ, graph_ms=integ["graph_ms"],
         plain_graph_ms=integ["plain_graph_ms"], times=integ["times"]))
+    kernels.append(_kernel_entry(
+        "forward_kinematics",
+        "bayes_sim_ig_tpu_torch/csrc/forward_kinematics.cu",
+        "none: physics/dynamics.py::kinematics_chain (plain torch)",
+        by_task("forward_kinematics"), fk, graph_ms=fk["graph_ms"],
+        plain_graph_ms=fk["plain_graph_ms"], times=fk["times"]))
     print(f"[total] chip_smoke.py ran in {time.perf_counter() - t0:.1f} s",
           flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """States for the integration kernel's checks that drive every clamp of
-``integrate`` and ``clamp_limits``; shared by
-``tests/test_torch_integrate_kernel.py`` and ``chip_smoke.py``. It imports
-no JAX, so that the card's checks can use it where JAX is absent."""
+``integrate`` and ``clamp_limits``, and for the kinematics kernel's; shared
+by ``tests/test_torch_integrate_kernel.py``,
+``tests/test_torch_fk_kernel.py`` and ``chip_smoke.py``. It imports no JAX,
+so that the card's checks can use it where JAX is absent."""
 
 import numpy as np
 import torch
@@ -28,3 +29,15 @@ def clamp_driving_states(model, n, seed=0, device="cpu"):
     v[:, model.j1_v] = rs.uniform(-1.5, 1.5, (n, len(lo))) * model.j1_maxv
     return [torch.as_tensor(x, dtype=torch.float32, device=device)
             for x in (q, v, qdd)]
+
+
+def kinematics_states(model, n, seed=0, device="cpu"):
+    """q, v (float32, env-first) and a per-env geometry scale (N,) on
+    ``device``: free bodies anywhere within 2 m at any orientation and
+    speed, joints across and past their ranges, the scale DR'd in [0.7,
+    1.3]."""
+    q, v, _ = clamp_driving_states(model, n, seed, device)
+    rs = np.random.RandomState(seed + 1)
+    scale = torch.as_tensor(rs.uniform(0.7, 1.3, n), dtype=torch.float32,
+                            device=device)
+    return q, v, scale

@@ -3,7 +3,7 @@ the sources it builds, on the CPU: each library declares every
 ``extern "C"`` entry of its sources, with the prototype's arguments one
 for one (a pointer as a pointer, an ``int`` as ``c_int``, a ``float`` as
 ``c_float``), and nothing else; every source under csrc/ is some
-library's; and ``launch_counts`` names the nine kernels in the table's
+library's; and ``launch_counts`` names the kernels in the table's
 order. A wrong signature would otherwise show only on a card."""
 
 import ctypes
@@ -68,5 +68,6 @@ def test_launch_counts_names_the_nine_kernels_in_order():
     assert list(launch_counts()) == [
         "rff_features", "spd_factor_lanes", "spd_substitute_lanes",
         "spd_solve_lanes", "tree_ltdl_factor", "tree_ltdl_substitute",
-        "tree_ltdl_upsolve", "tree_ltdl_downsolve", "integrate_clamp"]
+        "tree_ltdl_upsolve", "tree_ltdl_downsolve", "integrate_clamp",
+        "forward_kinematics"]
     assert "tree_half_plan" not in launch.COUNTS  # a query, not counted

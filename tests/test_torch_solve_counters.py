@@ -127,7 +127,7 @@ def test_step_graph_replays_add_the_counts():
     """``VecEnv.step`` at 64 Anymal envs on the card: the first call runs
     the step eagerly and captures it, each later call replays it; over
     five calls the solves, the env steps, the SPD kernels' and the
-    integration kernel's launches all count five steps."""
+    integration and kinematics kernels' launches all count five steps."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: a CUDA graph has no CPU mode")
     env, _ = _env("Anymal", "anymal", device="cuda", n=64)
@@ -141,7 +141,7 @@ def test_step_graph_replays_add_the_counts():
     assert got == {"physics.dense_factor": 10,
                    "physics.dense_substitute": 10, "sim.env_steps": 5,
                    "spd_factor_lanes": 10, "spd_substitute_lanes": 10,
-                   "integrate_clamp": 10}
+                   "integrate_clamp": 10, "forward_kinematics": 10}
     env.free_step_graphs()
 
 
