@@ -17,6 +17,7 @@ mass factor.
 ENV-LAST layout like the rest of the engine: per-point tensors are
 (P, 3, N); the per-point wrench accumulation is a static one-hot (nb, P)
 fold. Single-env calls (squeezed Kinematics) work too and return (nb, 6).
+``STATS`` counts the pair functions' calls by kind.
 """
 
 from __future__ import annotations
@@ -26,10 +27,19 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ops.launch import count_at_replay
 from ..ops.tree_solve import tree_downsolve, tree_upsolve
 from .dynamics import (Kinematics, _cross, _fold, _mv, _mvT, _promote,
                        _promote_kin, mass_factor_solve)
 from .model import ArticulatedModel, DynParams
+
+# Pair-contact evaluations of this process, by kind: a call of
+# ``sphere_plane_pair_forces`` (one pair) or of a multi-pair function (P
+# pairs in one set of ops). Counted on the host as the calls are made; a
+# CUDA graph adds what its capture counted at every replay.
+STATS = {"sphere_plane_pair": 0, "sphere_plane_pairs": 0,
+         "sphere_box_pairs": 0, "sphere_sphere_pairs": 0}
+count_at_replay("contact", STATS)
 
 
 def contact_points(model: ArticulatedModel) -> Tuple[np.ndarray, np.ndarray,
@@ -199,6 +209,7 @@ def sphere_plane_pair_forces(model: ArticulatedModel, kin: Kinematics,
     ``plane_halfsize`` optionally deactivates the contact when the sphere
     center leaves a square patch of that half-extent around plane_point,
     measured along the plane (the components orthogonal to its normal)."""
+    STATS["sphere_plane_pair"] += 1
     single = kin.p_w.ndim == 2
     if single:
         kin = Kinematics(*[a[..., None] for a in kin])
@@ -369,6 +380,7 @@ def sphere_plane_pairs_forces(model: ArticulatedModel, kin: Kinematics,
     also (n_w, depth, contact_pt) for the impulse pass, pairs outside
     their patch at depth -1; with ``forces=False`` only (None, geometry)
     (the impulse pass owns these contacts)."""
+    STATS["sphere_plane_pairs"] += 1
     kin, params, single = _batched(kin, params)
     dev = kin.p_w.device
     n = kin.p_w.shape[-1]
@@ -444,6 +456,7 @@ def sphere_box_pairs_forces(model: ArticulatedModel, kin: Kinematics,
     vector is read as the three axes; pass (3, N) at 3 envs). mu: scalar,
     (P,) or (P, N). Returns env-last (nb, 6, N), or with
     ``return_geometry`` also (n_w, depth, contact_pt)."""
+    STATS["sphere_box_pairs"] += 1
     kin, params, single = _batched(kin, params)
     dev = kin.p_w.device
     n = kin.p_w.shape[-1]
@@ -558,6 +571,7 @@ def sphere_sphere_pairs_forces(model: ArticulatedModel, kin: Kinematics,
     or (P, 3, N) env-last, in each link's frame (scaled by params.scale).
     radii: (P,) or (P, N). mu: scalar, (P,) or (P, N). Returns env-last
     (nb, 6, N) ((nb, 6) for single-env kin)."""
+    STATS["sphere_sphere_pairs"] += 1
     kin, params, single = _batched(kin, params)
     dev = kin.p_w.device
     n = kin.p_w.shape[-1]

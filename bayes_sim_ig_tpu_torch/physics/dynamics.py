@@ -26,7 +26,8 @@ layout:
     than 0.66 of the lower triangle, as Ant's and Anymal's do, and with
     the branch-sparse L^T D L of ``ops/tree_solve.py`` over the ancestor
     pairs alone for sparser trees (Humanoid, ShadowHand). Each is a CUDA
-    kernel on the card. ``STATS`` counts the solves by route and kind.
+    kernel on the card. ``STATS`` counts the solves by route and kind,
+    and the calls of ``forward_kinematics``.
 
 Everything is a function of (q, v, tau, params), so domain randomization is
 batched parameter tensors. Static tables of a model are built once per
@@ -60,12 +61,13 @@ TREE_LL_MIN_MEAN_DEPTH = 5.0
 
 # Mass-matrix solve calls of this process, by route ("dense": the SPD
 # kernels; "tree": the L^T D L ones) and kind: a factor, or a substitute
-# of one or more right-hand sides against a factor. Counted on the host as
-# the calls are made; a CUDA graph adds what its capture counted at every
-# replay (``count_at_replay``), so the counts stay those of the solves the
-# card ran.
+# of one or more right-hand sides against a factor; and ``kinematics``,
+# the calls of ``forward_kinematics`` (the kernel or the chain). Counted
+# on the host as the calls are made; a CUDA graph adds what its capture
+# counted at every replay (``count_at_replay``), so the counts stay those
+# of the work the card ran.
 STATS = {"dense_factor": 0, "dense_substitute": 0, "tree_factor": 0,
-         "tree_substitute": 0}
+         "tree_substitute": 0, "kinematics": 0}
 count_at_replay("physics", STATS)
 
 
@@ -307,10 +309,12 @@ def forward_kinematics(model: ArticulatedModel, q, v_dof,
     env gives its row of a batch); CPU tensors run ``kinematics_chain``,
     its plain version."""
     if on_cpu(q, v_dof):
+        STATS["kinematics"] += 1
         return kinematics_chain(model, q, v_dof, params)
     if q.ndim == 1:
         return _squeeze_last(forward_kinematics(
             model, q[None], v_dof[None], _promote(params)))
+    STATS["kinematics"] += 1
     st = _structure(model, q.device)
     return Kinematics(*forward_kinematics_cuda(
         q, v_dof, params.scale.expand(q.shape[0]), st["fk_itab"],

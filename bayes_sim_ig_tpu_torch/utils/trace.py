@@ -37,9 +37,11 @@ Counters live beside the work they count, as plain module dicts:
 ``utils/step_graph.py::STATS`` (captures, replays and capture seconds,
 by phase), ``utils/collect.py::STATS`` (the env steps collection
 steps and keeps), ``physics/dynamics.py::STATS`` (the mass-matrix solves
-by route and kind) and ``sim/task.py::STATS`` (the ``env_step`` calls).
-A CUDA graph adds the last two's capture counts at every replay, as it
-adds kernel launches (``ops/launch.py::count_at_replay``).
+by route and kind, and the ``forward_kinematics`` calls),
+``physics/contact.py::STATS`` (the pair-contact evaluations by kind) and
+``sim/task.py::STATS`` (the ``env_step`` calls). A CUDA graph adds the
+last three's capture counts at every replay, as it adds kernel launches
+(``ops/launch.py::count_at_replay``).
 """
 
 from __future__ import annotations

@@ -2,16 +2,18 @@
 
 Runs eager ``env_step`` calls of the benchmark cells' tasks at their
 widths (Anymal 4,000, Humanoid 4,096, ShadowHand 10,000 from
-``shadow_hand_more.yaml``) under ``torch.profiler`` with a range around
-each physics call of the task's substep (patched into the task's module
-and into ``physics/dynamics.py``), and prints each chain's device ms and
-kernel launches a step: forward kinematics, forward dynamics with its
-solves (and, inside it, the build of the bias, inertias, mass factors and
-CRBA values), the integration, the penalty contacts, ShadowHand's impulse
-pass, and the rest of the step. A kernel counts where it was launched;
-the profiler leaves some launches of the hand-written kernels (through
-ctypes) outside any range, and those count in their chain (``HAND``) by
-name.
+``shadow_hand_more.yaml``, FrankaCabinet 2,048) under ``torch.profiler``
+with a range around each physics call of the task's substep (patched
+into the task's module and into ``physics/dynamics.py``), and prints
+each chain's device ms and kernel launches a step: forward kinematics,
+forward dynamics with its solves (and, inside it, the build of the bias,
+inertias, mass factors and CRBA values), the integration, the penalty
+contacts (FrankaCabinet's finger-pad pairs among them), ShadowHand's
+impulse pass, and the rest of the step. FrankaCabinet's observation and
+reward run forward kinematics too, and count in its chain. A kernel
+counts where it was launched; the profiler leaves some launches of the
+hand-written kernels (through ctypes) outside any range, and those count
+in their chain (``HAND``) by name.
 
     python experiments/step_chains.py [--repo DIR] [--steps 10]
         [--out runs/step_chains.json]
@@ -26,11 +28,13 @@ import os
 import sys
 
 CELLS = [("Anymal", "anymal", 4000), ("Humanoid", "humanoid", 4096),
-         ("ShadowHand", "shadow_hand_more", 10000)]
+         ("ShadowHand", "shadow_hand_more", 10000),
+         ("FrankaCabinet", "franka_cabinet", 2048)]
 # Chain of each patched function, by the module that calls it.
 TASK_CHAINS = {"forward_kinematics": "fk", "forward_dynamics": "dynamics",
                "integrate_and_clamp": "integrate",
                "ground_contact_forces": "contacts",
+               "sphere_plane_pair_forces": "contacts",
                "sphere_plane_pairs_forces": "contacts",
                "sphere_box_pairs_forces": "contacts",
                "sphere_sphere_pairs_forces": "contacts",

@@ -11,7 +11,8 @@ card for the torch chain ``kinematics_chain``.
       is the torch chain, bit for bit, and launches nothing;
   (c) on a card (``cuda`` marker; skipped without one): every field of the
       kernel's result against the torch chain on the card, bit for bit, at
-      the cells' widths (4,000, 4,096 and 10,000 envs), and a single env
+      the cells' widths (4,000, 4,096 and 10,000 envs, and FrankaCabinet's
+      prismatic joints and two fixed roots at 2,048), and a single env
       against its row of the batch, at random states with the geometry
       scale DR'd;
   (d) on a card: a captured ``VecEnv.step`` of Anymal, Humanoid and
@@ -320,6 +321,14 @@ def test_the_kernel_is_the_torch_chain_on_the_card(name, n):
     assert launch_counts()["forward_kinematics"] == before + 2
     for field, g, w in zip(dynamics.Kinematics._fields, single, want):
         assert torch.equal(g, w[..., 7]), field
+
+
+@pytest.mark.cuda
+def test_the_kernel_is_the_torch_chain_at_frankas_cell_width():
+    """FrankaCabinet at the 2,048 envs of its cell: the prismatic branch
+    (the two fingers and the drawer) under two fixed roots, every field
+    bit for bit, as above."""
+    test_the_kernel_is_the_torch_chain_on_the_card("FrankaCabinet", 2048)
 
 
 @pytest.mark.cuda

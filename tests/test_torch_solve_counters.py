@@ -1,16 +1,22 @@
-"""The physics' solve counters and the env-step counter of the port
-(``physics/dynamics.py::STATS``, ``sim/task.py::STATS``):
+"""The physics' counters and the env-step counter of the port
+(``physics/dynamics.py::STATS``: solves and kinematics;
+``physics/contact.py::STATS``: pair contacts; ``sim/task.py::STATS``):
 
   (a) one Anymal step (its 18-dof mass matrix fills 0.684 of the lower
       triangle: the dense route) calls two SPD factors and two
       substitutes, one per substep, and one Humanoid step (the tree
       route) two tree factors and two substitutes; one Ant step (dense,
       the frozen-mass scheme: the first substep's factor serves the
-      second) one factor and two substitutes;
+      second) one factor and two substitutes; each runs forward
+      kinematics once a substep; one FrankaCabinet step (dense, n 10)
+      two factors and two substitutes, two finger-pad pair contacts a
+      substep, and four forward kinematics: one a substep, one in its
+      observation and one in its reward;
   (b) ``launch_counts`` stays the kernels' launches, and ``replay_counts``
       adds the counts registered with ``count_at_replay``;
   (c) on a card (``cuda`` marker), a step graph's replays add what its
-      capture counted, as they add the kernels' launches;
+      capture counted, as they add the kernels' launches: Anymal's solves
+      and FrankaCabinet's pair contacts and kinematics too;
   (d) on a card, an env step integrates in two launches of the
       integration kernel, one a substep, eager and replayed alike: in
       (c) for Anymal, here for the other cells' tasks, Humanoid and
@@ -30,7 +36,7 @@ from bayes_sim_ig_tpu_torch.ops import launch
 from bayes_sim_ig_tpu_torch.ops.launch import (count_at_replay, launch_counts,
                                                launch_increments,
                                                replay_counts)
-from bayes_sim_ig_tpu_torch.physics import dynamics
+from bayes_sim_ig_tpu_torch.physics import contact, dynamics
 from bayes_sim_ig_tpu_torch.sim import env_step, make_env, task as task_mod
 
 torch.set_num_threads(1)
@@ -73,17 +79,35 @@ def test_one_step_counts_its_solves_by_route(name, stem, route):
     factors = 1 if name == "Ant" else 2  # Ant carries its factor
     assert _step_counts(env, distr) == {
         f"physics.{route}_factor": factors,
-        f"physics.{route}_substitute": 2, "sim.env_steps": 1}
+        f"physics.{route}_substitute": 2, "physics.kinematics": 2,
+        "sim.env_steps": 1}
+
+
+def test_one_franka_step_counts_its_pair_contacts_and_kinematics():
+    """FrankaCabinet's step: the dense route at n 10, the handle against
+    each finger pad on each substep, and forward kinematics on each
+    substep, in ``observe`` and in ``reward``."""
+    env, distr = _env("FrankaCabinet", "franka_cabinet")
+    assert not dynamics._uses_tree_solve(env.task.model)
+    assert env.task.model.nv == 10
+    assert _step_counts(env, distr) == {
+        "physics.dense_factor": 2, "physics.dense_substitute": 2,
+        "physics.kinematics": 4, "contact.sphere_plane_pair": 4,
+        "sim.env_steps": 1}
 
 
 def test_launch_counts_are_the_kernels_and_replay_counts_add_the_work():
     kernels = launch_counts()
     work = {f"physics.{k}" for k in dynamics.STATS} | {
+        f"contact.{k}" for k in contact.STATS} | {
         f"sim.{k}" for k in task_mod.STATS}
     assert set(replay_counts()) == set(kernels) | work
     assert not set(kernels) & work
     assert set(dynamics.STATS) == {"dense_factor", "dense_substitute",
-                                   "tree_factor", "tree_substitute"}
+                                   "tree_factor", "tree_substitute",
+                                   "kinematics"}
+    assert set(contact.STATS) == {"sphere_plane_pair", "sphere_plane_pairs",
+                                  "sphere_box_pairs", "sphere_sphere_pairs"}
 
 
 def test_a_registered_dict_is_added_at_replay(monkeypatch):
@@ -104,7 +128,8 @@ def test_a_registered_dict_is_added_at_replay(monkeypatch):
 def test_a_carried_factor_counts_only_its_substitute():
     """``forward_dynamics`` fed a factor (the frozen-mass scheme) skips the
     factorization: one substitute, no factor; ``mass_factor_solve`` is one
-    substitute of any number of right-hand sides."""
+    substitute of any number of right-hand sides. Called without ``kin``,
+    ``forward_dynamics`` runs its own forward kinematics."""
     env, _ = _env("Anymal", "anymal")
     task = env.task
     st = env.state.task_state
@@ -119,15 +144,16 @@ def test_a_carried_factor_counts_only_its_substitute():
     dynamics.mass_factor_solve(m, factor, torch.ones(5, m.nv, N))
     assert {k: dynamics.STATS[k] - before[k] for k in before} == {
         "dense_factor": 0, "dense_substitute": 2, "tree_factor": 0,
-        "tree_substitute": 0}
+        "tree_substitute": 0, "kinematics": 1}
 
 
 @pytest.mark.cuda
 def test_step_graph_replays_add_the_counts():
     """``VecEnv.step`` at 64 Anymal envs on the card: the first call runs
     the step eagerly and captures it, each later call replays it; over
-    five calls the solves, the env steps, the SPD kernels' and the
-    integration and kinematics kernels' launches all count five steps."""
+    five calls the solves, the kinematics, the env steps, the SPD
+    kernels' and the integration and kinematics kernels' launches all
+    count five steps."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: a CUDA graph has no CPU mode")
     env, _ = _env("Anymal", "anymal", device="cuda", n=64)
@@ -139,9 +165,34 @@ def test_step_graph_replays_add_the_counts():
     after = replay_counts()
     got = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     assert got == {"physics.dense_factor": 10,
-                   "physics.dense_substitute": 10, "sim.env_steps": 5,
+                   "physics.dense_substitute": 10, "physics.kinematics": 10,
+                   "sim.env_steps": 5,
                    "spd_factor_lanes": 10, "spd_substitute_lanes": 10,
                    "integrate_clamp": 10, "forward_kinematics": 10}
+    env.free_step_graphs()
+
+
+@pytest.mark.cuda
+def test_franka_step_graph_replays_add_pair_contacts_and_kinematics():
+    """``VecEnv.step`` at 64 FrankaCabinet envs on the card: over five
+    calls (an eager step and its capture, then four replays) the pair
+    contacts and the forward kinematics count five steps, as the SPD,
+    integration and kinematics kernels' launches do."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: a CUDA graph has no CPU mode")
+    env, _ = _env("FrankaCabinet", "franka_cabinet", device="cuda", n=64)
+    act = torch.zeros(64, env.task.act_dim, device="cuda")
+    before = replay_counts()
+    for _ in range(5):
+        env.step(act)
+    torch.cuda.synchronize()
+    after = replay_counts()
+    got = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert got == {"physics.dense_factor": 10,
+                   "physics.dense_substitute": 10, "physics.kinematics": 20,
+                   "contact.sphere_plane_pair": 20, "sim.env_steps": 5,
+                   "spd_factor_lanes": 10, "spd_substitute_lanes": 10,
+                   "integrate_clamp": 10, "forward_kinematics": 20}
     env.free_step_graphs()
 
 
