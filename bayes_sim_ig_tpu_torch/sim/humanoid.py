@@ -42,7 +42,7 @@ from ..physics import (
     ground_contact_forces,
 )
 from ..physics.spatial import quat_to_rot
-from .render2d import draw_line
+from .render2d import draw_lines, fill_discs
 from ..utils.device import resolve_device
 from .task import Task
 
@@ -321,51 +321,68 @@ class Humanoid(Task):
         observed torso height, torso leaned by the base quaternion's pitch,
         legs posed by hip_y/knee (obs dof order = TREE_DOFS), arms drawn
         schematically from shoulder2/elbow."""
-        obs = np.asarray(obs_row, np.float64)
-        z, quat = obs[0], obs[1:5]
-        dof = obs[13:34]                         # 21, TREE_DOFS order
-        w, x, y, zq = quat
+        return self.render_obs_frames(np.asarray(obs_row)[None], height,
+                                      width)[0]
+
+    def render_obs_frames(self, obs_traj, height=200, width=200):
+        """``render_obs_frame`` of each row of a (T, obs_dim) episode, as a
+        (T, H, W, 3) uint8 batch. Each stage is drawn on every frame
+        before the next, in the one-frame order, so later colours cover
+        earlier ones as they do there. Pixel offsets truncate toward zero
+        (``astype(int)``, as ``int``)."""
+        obs = np.asarray(obs_traj, np.float64)
+        frames = np.arange(obs.shape[0])
+        z = obs[:, 0]
+        w, x, y, zq = obs[:, 1:5].T
+        dof = obs[:, 13:34]                      # 21, TREE_DOFS order
         # Torso z-axis projected onto the world x-z plane.
         lean = np.arctan2(2 * (x * zq + w * y),
                           1 - 2 * (x * x + y * y))
-        img = np.full((height, width, 3), 255, np.uint8)
         scale = height / 2.2                      # 2.2 m field of view
         cx = width // 2
         gy = height - int(0.06 * height)
-        img[gy:gy + 2, :] = (120, 120, 120)       # ground
-        py = gy - int(np.clip(z, 0.1, 2.0) * scale * 0.7)
+        # The ground, alike in every frame: drawn once.
+        ground = np.full((1, height, width, 3), 255, np.uint8)
+        ground[:, gy:gy + 2] = (120, 120, 120)
+        imgs = np.repeat(ground, len(frames), axis=0)
+        py = gy - (np.clip(z, 0.1, 2.0) * scale * 0.7).astype(int)
 
-        def line(x0, y0, x1, y1, color, thick=1):
-            draw_line(img, x0, y0, x1, y1, color, thick)
+        def sin_px(length, angle):
+            return (length * np.sin(angle)).astype(int)
+
+        def cos_px(length, angle):
+            return (length * np.cos(angle)).astype(int)
 
         torso_len = 0.45 * scale
-        tx = cx + int(torso_len * np.sin(lean))
-        ty = py - int(torso_len * np.cos(lean))
-        line(cx, py, tx, ty, (150, 111, 214), 2)
+        tx = cx + sin_px(torso_len, lean)
+        ty = py - cos_px(torso_len, lean)
+        draw_lines(imgs, frames, cx, py, tx, ty, (150, 111, 214), 2)
         r = max(3, int(0.09 * scale))
-        yy, xx = np.ogrid[:height, :width]
-        hx = tx + int(1.5 * r * np.sin(lean))
-        hy = ty - int(1.5 * r * np.cos(lean))
-        img[(xx - hx) ** 2 + (yy - hy) ** 2 <= r * r] = (150, 111, 214)
+        fill_discs(imgs, frames, tx + sin_px(1.5 * r, lean),
+                   ty - cos_px(1.5 * r, lean), r, (150, 111, 214))
         # Legs: right dofs at [3:9], left at [12:18]; hip_y is the 3rd
-        # entry of each 6-dof leg block, knee the 4th.
+        # entry of each 6-dof leg block, knee the 4th. Thigh and shin
+        # share a colour: one call.
         for off, color in ((3, (40, 40, 40)), (12, (120, 120, 120))):
-            hip = lean + dof[off + 2]
-            kx = cx + int(0.34 * scale * np.sin(hip))
-            ky = py + int(0.34 * scale * np.cos(hip))
-            line(cx, py, kx, ky, color, 1)
-            knee = hip + dof[off + 3]
-            fx = kx + int(0.33 * scale * np.sin(knee))
-            fy = ky + int(0.33 * scale * np.cos(knee))
-            line(kx, ky, fx, fy, color, 1)
+            hip = lean + dof[:, off + 2]
+            kx = cx + sin_px(0.34 * scale, hip)
+            ky = py + cos_px(0.34 * scale, hip)
+            knee = hip + dof[:, off + 3]
+            fx = kx + sin_px(0.33 * scale, knee)
+            fy = ky + cos_px(0.33 * scale, knee)
+            draw_lines(imgs, np.tile(frames, 2),
+                       np.concatenate([np.full_like(kx, cx), kx]),
+                       np.concatenate([py, ky]), np.concatenate([kx, fx]),
+                       np.concatenate([ky, fy]), color, 1)
         # Arms: shoulder2/elbow of each 3-dof arm block ([9:12], [18:21]).
         for off, color in ((9, (40, 40, 40)), (18, (120, 120, 120))):
-            sh = lean + np.pi + 0.6 * dof[off + 1]
-            ex = tx + int(0.25 * scale * np.sin(sh))
-            ey = ty - int(0.25 * scale * np.cos(sh))
-            line(tx, ty, ex, ey, color, 1)
-            el = sh + 0.6 * dof[off + 2]
-            wx2 = ex + int(0.23 * scale * np.sin(el))
-            wy2 = ey - int(0.23 * scale * np.cos(el))
-            line(ex, ey, wx2, wy2, color, 1)
-        return img
+            sh = lean + np.pi + 0.6 * dof[:, off + 1]
+            ex = tx + sin_px(0.25 * scale, sh)
+            ey = ty - cos_px(0.25 * scale, sh)
+            el = sh + 0.6 * dof[:, off + 2]
+            wx2 = ex + sin_px(0.23 * scale, el)
+            wy2 = ey - cos_px(0.23 * scale, el)
+            draw_lines(imgs, np.tile(frames, 2), np.concatenate([tx, ex]),
+                       np.concatenate([ty, ey]), np.concatenate([ex, wx2]),
+                       np.concatenate([ey, wy2]), color, 1)
+        return imgs

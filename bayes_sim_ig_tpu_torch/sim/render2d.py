@@ -1,7 +1,8 @@
 """Tiny shared numpy rasterizer for the task schematic renderers (the
 ``render_obs_frame`` surfaces feeding the RealSurrogate frames). Port of
 ``bayes_sim_ig_tpu/sim/render2d.py``, with ``draw_lines``, its
-``draw_line`` over many segments and frames at once."""
+``draw_line`` over many segments and frames at once, and ``fill_discs``,
+the one-frame disc mask over many frames at once."""
 
 import numpy as np
 
@@ -46,6 +47,29 @@ def draw_lines(imgs, frame_ids, x0, y0, x1, y1, color, thick=1):
     pixels = imgs.reshape(-1, 3).view("V3")[:, 0]
     pixels[(pix[:, :, None] + cols[:, None, :]).ravel()] = (
         np.asarray([color], np.uint8).view("V3")[0, 0])
+
+
+def fill_discs(imgs, frame_ids, cx, cy, r, color):
+    """Fills disc k, the pixels ``(xx - cx[k])**2 + (yy - cy[k])**2 <= r*r``
+    of integer centres and radius ``r >= 0``, into ``imgs[frame_ids[k]]``
+    of a (T, H, W, 3) uint8 batch in place, pixel for pixel as the
+    one-frame ``np.ogrid`` mask fills it: one offset stencil laid at every
+    centre, its pixels outside the image dropped (not clamped, as
+    ``draw_lines`` clamps)."""
+    if not imgs.flags.c_contiguous:
+        raise ValueError("fill_discs draws into a C-contiguous batch")
+    _, height, width, _ = imgs.shape
+    frame_ids, cx, cy = (np.ravel(a).astype(np.int64)
+                         for a in np.broadcast_arrays(frame_ids, cx, cy))
+    off = np.arange(-r, r + 1)
+    dy, dx = (a.ravel() for a in np.meshgrid(off, off, indexing="ij"))
+    keep = dx * dx + dy * dy <= r * r
+    rows = cy[:, None] + dy[keep]
+    cols = cx[:, None] + dx[keep]
+    inside = (rows >= 0) & (rows < height) & (cols >= 0) & (cols < width)
+    pix = ((frame_ids[:, None] * height + rows) * width + cols)[inside]
+    pixels = imgs.reshape(-1, 3).view("V3")[:, 0]
+    pixels[pix] = np.asarray([color], np.uint8).view("V3")[0, 0]
 
 
 def _ragged_linspace(start, stop, n, seg, i, ends):

@@ -20,6 +20,7 @@ import os
 import pickle
 
 import numpy as np
+import pytest
 import torch
 import yaml
 
@@ -38,6 +39,7 @@ from bayes_sim_ig_tpu_torch.ops import tree_solve
 from bayes_sim_ig_tpu_torch.ops.launch import launch_counts
 from bayes_sim_ig_tpu_torch.sim import available_tasks, make_env
 from bayes_sim_ig_tpu_torch.sim.humanoid import Humanoid, HumanoidState
+from bayes_sim_ig_tpu_torch.utils import collect, trace
 from bayes_sim_ig_tpu_torch.utils.convert import dynparams_from_jax
 
 from . import torch_task_checks as tc
@@ -318,6 +320,83 @@ def test_render_obs_frame():
     np.testing.assert_array_equal(frame, want)
 
 
+def _episode_rows(tt, envs=40, steps=24, seed=0):
+    """(envs * (steps + 1), 55) float32 observation rows of the port's CPU
+    env (each env's reset, then ``steps`` steps at random actions), with
+    the renderer's edge cases written over the first rows: the torso
+    height below 0.1 and above 2.0, lean at and near 0, +-pi/2 and +-pi,
+    an all-zero and an unnormalised quaternion, legs and arms stretched
+    off each edge of the image (hip_y and knee at obs 18-19 and 27-28,
+    shoulder2 and elbow at 23-24 and 32-33), the head at its highest."""
+    params = torch.from_numpy(tc.params_in_box(tt, envs, seed))
+    st = tt.init_state(torch.Generator().manual_seed(seed), params)
+    rows = [tt.observe(st, params)]
+    rs = np.random.RandomState(seed + 1)
+    for _ in range(steps):
+        act = rs.uniform(-1, 1, (envs, tt.act_dim)).astype(np.float32)
+        st = tt.physics_step(st, torch.from_numpy(act), params, None)
+        rows.append(tt.observe(st, params))
+    obs = torch.cat(rows).numpy()
+    c, s = np.cos(np.pi / 4), np.sin(np.pi / 4)
+    # shoulder2 values that point an arm up, left or right at lean 0.
+    up, left, right = -np.pi / 0.6, 0.5 * np.pi / 0.6, -0.5 * np.pi / 0.6
+    upright = [1, 0, 0, 0]
+    edges = [
+        {0: 0.05}, {0: -1.0}, {0: 2.5}, {0: 0.1}, {0: 2.0},
+        {1: upright}, {1: [1, 0, 1e-7, 0]}, {1: [c, 0, s, 0]},
+        {1: [c, 0, -s, 0]}, {1: [0, 0, 1, 0]}, {1: [0, 0, -1, 0]},
+        {1: [1e-4, 0, 1, 0]}, {1: [1e-4, 0, -1, 0]}, {1: [0, 0, 0, 0]},
+        {1: [2.0, 0.3, 1.5, -0.7]},
+        # 15-22: the right (dark) limbs, then the left, stretched up at
+        # the highest pelvis (the head at its highest too), left, right,
+        # and down at the lowest pelvis; the other side's limbs hang.
+        {0: 2.5, 1: upright, 18: [np.pi, 0], 23: [up, 0], 27: [0, 0],
+         32: [0, 0]},
+        {0: 2.5, 1: upright, 27: [np.pi, 0], 32: [up, 0], 18: [0, 0],
+         23: [0, 0]},
+        {1: upright, 18: [-np.pi / 2, 0], 23: [left, 0], 27: [0, 0],
+         32: [0, 0]},
+        {1: upright, 27: [-np.pi / 2, 0], 32: [left, 0], 18: [0, 0],
+         23: [0, 0]},
+        {1: upright, 18: [np.pi / 2, 0], 23: [right, 0], 27: [0, 0],
+         32: [0, 0]},
+        {1: upright, 27: [np.pi / 2, 0], 32: [right, 0], 18: [0, 0],
+         23: [0, 0]},
+        {0: 0.0, 1: upright, 18: [0, 0], 27: [np.pi, 0]},
+        {0: 0.0, 1: upright, 27: [0, 0], 18: [np.pi, 0]},
+    ]
+    for row, cols in enumerate(edges):
+        for col, vals in cols.items():
+            vals = np.atleast_1d(vals)
+            obs[row, col:col + len(vals)] = vals
+    return obs
+
+
+@pytest.mark.parametrize("size", [(200, 200), (40, 16)])
+def test_render_obs_frames_equal_the_jax_frames_row_by_row(size):
+    """A 1,000-row episode drawn as one batch is, frame for frame and bit
+    for bit, the JAX package's ``render_obs_frame`` of each row; at the
+    small size the head disc crosses the top edge and the limbs every
+    edge."""
+    jt, tt = _tasks()
+    obs = _episode_rows(tt)
+    assert obs.shape == (1000, 55) and np.isfinite(obs).all()
+    got = tt.render_obs_frames(obs, *size)
+    assert got.shape == (1000, *size, 3) and got.dtype == np.uint8
+    want = np.stack([jt.render_obs_frame(row, *size) for row in obs])
+    assert np.array_equal(got, want)
+    assert np.array_equal(tt.render_obs_frame(obs[7], *size), want[7])
+    # The dark right hand off the top, the right foot off the bottom;
+    # at the small size also the head disc over the top and the right
+    # limbs off the left and right edges.
+    dark = [40, 40, 40]
+    assert dark in got[15, 0].tolist() and dark in got[21, -1].tolist()
+    if size == (40, 16):
+        assert [150, 111, 214] in got[15, 0].tolist()
+        assert dark in got[17, :, 0].tolist()
+        assert dark in got[19, :, -1].tolist()
+
+
 def test_humanoid_is_registered_and_the_cli_takes_it():
     from bayes_sim_ig_tpu_torch.utils.args import init_args
     assert "Humanoid" in available_tasks()
@@ -332,7 +411,8 @@ def test_adr_loop_runs_on_cpu(tmp_path, monkeypatch):
     """bayes_sim_main.main on a tiny Humanoid config (8 envs, 16 training
     trajectories, 2 evaluation episodes of 20 steps, 1 PPO iteration):
     one ADR iteration through the tree-solve physics, MDNN and PPO; a
-    finite 37-dim posterior on disk, no kernel launched."""
+    finite 37-dim posterior on disk, no kernel launched, every evaluation
+    frame drawn as one batch."""
     from bayes_sim_ig_tpu_torch import bayes_sim_main
     monkeypatch.setattr(bayes_sim_main, "_plot_posterior",
                         lambda *a, **k: None)
@@ -343,11 +423,25 @@ def test_adr_loop_runs_on_cpu(tmp_path, monkeypatch):
     with open(cfg_path, "w") as f:
         yaml.safe_dump(cfg, f, sort_keys=False)
     before = launch_counts()
-    out = bayes_sim_main.main([
-        "--task", "Humanoid", "--cfg_env", str(cfg_path), "--logdir",
-        str(tmp_path / "logs"), "--max_iterations", "1", "--rl_device",
-        "cpu"])
+    frames_before = dict(collect.STATS)
+    trace.reset()
+    trace.enable()
+    try:
+        out = bayes_sim_main.main([
+            "--task", "Humanoid", "--cfg_env", str(cfg_path), "--logdir",
+            str(tmp_path / "logs"), "--max_iterations", "1", "--rl_device",
+            "cpu"])
+        spans = [r for r in trace.records() if r["name"] == "collect.frames"]
+    finally:
+        trace.disable()
+        trace.reset()
     assert launch_counts() == before
+    # Every evaluation frame is drawn by the batch renderer.
+    drawn = collect.STATS["frames"] - frames_before["frames"]
+    assert drawn > 0 and drawn == (collect.STATS["frames_batched"]
+                                   - frames_before["frames_batched"])
+    assert spans and all(r["attrs"]["batched"] for r in spans)
+    assert sum(r["attrs"]["frames"] for r in spans) == drawn
     assert type(out["bsim"].model).__name__ == "MDNN"
     assert len(out["iter_secs"]) == 1
     with open(os.path.join(out["logdir"], "checkpoints",

@@ -1,14 +1,17 @@
 """The batched frames on the CPU: ``sim/render2d.py::draw_lines`` against a
-loop of ``draw_line`` over the same segments, and
-``utils/collect.py::_render_env0`` through a task's batch renderer
-(ShadowHand's ``render_obs_frames``) and frame by frame (Pendulum), with
-collection's frame counters."""
+loop of ``draw_line`` over the same segments, ``fill_discs`` against the
+one-frame ``np.ogrid`` disc mask, and ``utils/collect.py::_render_env0``
+through a task's batch renderer (ShadowHand's and Humanoid's
+``render_obs_frames``) and frame by frame (Pendulum), with collection's
+frame counters."""
 
 import numpy as np
 import pytest
 
 from bayes_sim_ig_tpu_torch.sim import make_env
-from bayes_sim_ig_tpu_torch.sim.render2d import draw_line, draw_lines
+from bayes_sim_ig_tpu_torch.sim.render2d import (
+    draw_line, draw_lines, fill_discs,
+)
 from bayes_sim_ig_tpu_torch.utils import collect
 
 from . import torch_task_checks as tc
@@ -55,8 +58,35 @@ def test_draw_lines_refuses_a_strided_batch():
         draw_lines(imgs, [0], [1.0], [1.0], [5.0], [5.0], (1, 2, 3))
 
 
+@pytest.mark.parametrize("r", [3, 8, 12])
+def test_fill_discs_equals_the_one_frame_mask(r):
+    """Discs centred inside the image, on each edge and corner, wholly
+    outside it, several on one frame, over a batch of 4 frames: each
+    frame equals the ``np.ogrid`` mask written disc by disc."""
+    rs = np.random.RandomState(r)
+    fixed = [(0, 30, 20), (0, 0, 20), (1, W - 1, 20), (1, 30, 0),
+             (2, 30, H - 1), (2, 0, 0), (3, W - 1, H - 1), (3, -r, 20),
+             (0, W + r, 5), (1, 30, -r - 1), (2, 10, H + 2 * r),
+             (3, -50, -50), (3, 2, H - 3)]
+    rand = np.column_stack([rs.randint(0, 4, 30),
+                            rs.randint(-r - 2, W + r + 2, 30),
+                            rs.randint(-r - 2, H + r + 2, 30)])
+    discs = np.concatenate([np.array(fixed), rand])
+    start = rs.randint(0, 256, (4, H, W, 3)).astype(np.uint8)
+    want = start.copy()
+    yy, xx = np.ogrid[:H, :W]
+    for f, cx, cy in discs:
+        want[f][(xx - cx) ** 2 + (yy - cy) ** 2 <= r * r] = (150, 111, 214)
+    got = start.copy()
+    fill_discs(got, discs[:, 0], discs[:, 1], discs[:, 2], r,
+               (150, 111, 214))
+    assert np.array_equal(got, want)
+    assert (got != start).any(axis=-1).sum() > 4 * r * r
+
+
 @pytest.mark.parametrize("task_name,stem,batched", [
-    ("ShadowHand", "shadow_hand", True), ("Pendulum", "pendulum", False)])
+    ("ShadowHand", "shadow_hand", True), ("Humanoid", "humanoid", True),
+    ("Pendulum", "pendulum", False)])
 def test_render_env0_gives_the_episode_frames_and_counts_them(
         task_name, stem, batched):
     task = make_env(task_name, tc.load_cfg(stem, 2), device="cpu").task
